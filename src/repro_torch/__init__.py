@@ -1,0 +1,15 @@
+"""PyTorch/CUDA port of the MetaHipMer reproduction in `repro`.
+
+The JAX package `repro` is the reference; this package mirrors its module
+layout (`core/`, `kernels/`, `api/`, `data/`) so each module here can be
+checked against the reference module of the same name.  It imports
+`torch`, never `jax`, and nothing of `repro`.
+
+    from repro_torch.api import Assembler, AssemblyPlan, Local
+    plan = AssemblyPlan.from_dataset(reads, (17, 21, 4),
+                                     run_local_assembly=False)
+    contigs, alive, al, stats = Assembler(plan, Local()).contig_rounds(reads)
+
+`Local()` runs on the CUDA card; `Local(device="cpu")` runs the plain
+PyTorch versions of the kernels on the CPU.
+"""

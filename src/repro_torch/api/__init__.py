@@ -1,0 +1,18 @@
+"""Assembler front door (mirrors `repro.api`).
+
+    from repro_torch.api import Assembler, AssemblyPlan, Local
+"""
+from .assembler import Assembler, IterationStats, extract_contig_kmers
+from .context import ExecutionContext, Local
+from .plan import AssemblyPlan, PlanError, validate_assembly_params
+
+__all__ = [
+    "Assembler",
+    "AssemblyPlan",
+    "ExecutionContext",
+    "IterationStats",
+    "Local",
+    "PlanError",
+    "extract_contig_kmers",
+    "validate_assembly_params",
+]

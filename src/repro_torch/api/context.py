@@ -1,0 +1,109 @@
+"""Execution contexts: where the read-proportional stages run (mirrors
+`repro.api.context`; `Local` only).
+
+`Assembler` drives Algorithm 1 against the stage protocol below.  `Local`
+runs every stage on one device: the CUDA card unless the caller asks for
+the CPU.  It never falls back: without a visible card and without
+`device="cpu"` it raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import alignment, kmer_analysis
+
+
+class ExecutionContext:
+    """Stage protocol (`prepare`, `kmer_set`, `align`, `extend`)."""
+
+    def prepare(self, reads, plan) -> None:
+        """Bind the dataset + plan; called once per run."""
+        raise NotImplementedError
+
+    def kmer_set(self, k: int, prev):
+        """Counted, finalized k-mer set for this round; `prev` is None or
+        the previous round's (contigs, alive).  Returns (KmerSet, dict)."""
+        raise NotImplementedError
+
+    def align(self, contigs, alive, k: int):
+        """Alignments of every read against the live contigs ([R, 2])."""
+        raise NotImplementedError
+
+    def extend(self, contigs, alive, al, k: int):
+        """Local-assembly extension of contig ends (§II-G)."""
+        raise NotImplementedError
+
+    def overflow(self) -> dict:
+        """Accumulated overflow counts (reported, never dropped)."""
+        return dict(self._overflow)
+
+    def _note_overflow(self, key: str, n) -> None:
+        self._overflow[key] = self._overflow.get(key, 0) + int(n)
+
+    def _reset_overflow(self) -> None:
+        self._overflow = {}
+
+
+class Local(ExecutionContext):
+    """Single-device execution.
+
+    device=None means the CUDA card, and raises if none is visible; pass
+    device="cpu" to run the plain versions of the kernels on the CPU.
+    """
+
+    def __init__(self, device=None):
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "Local(): no CUDA device is visible; pass "
+                    "Local(device='cpu') to run on the CPU")
+            device = "cuda"
+        self.device = torch.device(device)
+        self._reset_overflow()
+
+    def prepare(self, reads, plan) -> None:
+        self.reads = reads.to(self.device)
+        self.plan = plan
+        self._reset_overflow()
+
+    def kmer_set(self, k: int, prev):
+        plan = self.plan
+        if plan.low_memory:
+            raise NotImplementedError(
+                "low_memory=True (Bloom two-sighting admission) is not "
+                "ported yet: ROADMAP.md Queue 1, Streaming item")
+        hi, lo, left, right, valid = kmer_analysis.occurrences(
+            self.reads, k=k, backend=plan.kernel_backend)
+        tab = kmer_analysis.count_occurrences(
+            hi, lo, left, right, valid, capacity=plan.kmer_capacity)
+        del hi, lo, left, right, valid
+        if prev is not None:
+            from .assembler import extract_contig_kmers
+
+            contigs, alive = prev
+            ptab = extract_contig_kmers(
+                contigs, alive, k=k, capacity=plan.kmer_capacity,
+                weight=plan.contig_pseudo_weight,
+                backend=plan.kernel_backend)
+            tab = kmer_analysis.merge_counts(tab, ptab,
+                                             capacity=plan.kmer_capacity)
+        overflow = bool(tab["overflow"])
+        self._note_overflow("kmer_table", overflow)
+        kset = kmer_analysis.finalize(tab, min_count=plan.min_count,
+                                      policy=plan.policy)
+        return kset, {"table": overflow}
+
+    def align(self, contigs, alive, k: int):
+        seed_len = min(k, 27)
+        sidx = alignment.build_seed_index(
+            contigs, alive, seed_len=seed_len, capacity=self.plan.seed_cap,
+            backend=self.plan.kernel_backend)
+        return alignment.align_reads(
+            self.reads, contigs, sidx, seed_len=seed_len,
+            stride=self.plan.seed_stride, gapped=self.plan.gapped_align,
+            backend=self.plan.kernel_backend)
+
+    def extend(self, contigs, alive, al, k: int):
+        raise NotImplementedError(
+            "Local.extend (local assembly) needs the mer_walk kernel, not "
+            "ported yet: ROADMAP.md Queue 1, local assembly item")

@@ -1,0 +1,304 @@
+"""AssemblyPlan: one derived capacity plan for a run (mirrors
+`repro.api.plan`, single-device part).
+
+`AssemblyPlan.from_dataset(reads, k_range, slack=...)` derives every stage
+capacity from the dataset shape the paper's §II-B way: provision from an
+upfront cardinality estimate, report overflow, never grow.  `plan.bytes()`
+states the memory bill before any array is allocated.  The fields are the
+reference's, so a reference plan's `dataclasses.asdict` builds this one
+(`bridge.plan_from_fields`).
+
+Differences from the reference, all in what the port does not run yet:
+
+  * `kernel_backend` is None (kernels on the card, plain versions on the
+    CPU) or "torch" (plain versions everywhere), see `kernels.ops`;
+  * `num_shards` must be 1 and `batch_reads` None: the Mesh and streaming
+    contexts are not ported;
+  * the walk-ladder and (contig, mer) tag-space checks apply only when
+    `run_local_assembly` is set, since only the local-assembly walk uses
+    the ladder and the tags.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+from repro_torch.core.kmer_analysis import ExtensionPolicy
+
+BACKENDS = (None, "torch")
+
+
+class PlanError(ValueError):
+    """A plan parameter is invalid (raised before any work starts)."""
+
+
+def next_pow2(n: int) -> int:
+    """Smallest power of two >= n (>= 1)."""
+    return 1 << (max(int(n), 1) - 1).bit_length()
+
+
+def _ladder(k: int, step: int) -> tuple:
+    """Mer-size ladder for the dynamic walk (§II-G)."""
+    return (max(11, k - step), k, min(k + step, 27))
+
+
+def _normalize_k_range(k_range: tuple) -> tuple:
+    """(k_min, k_max) -> (k_min, k_max, step); 3-tuples pass through."""
+    if len(k_range) == 2:
+        return (k_range[0], k_range[1], max(k_range[1] - k_range[0], 1))
+    return tuple(k_range)
+
+
+def _clamp_contig_cap(base: dict, overrides: dict) -> dict:
+    """Respect the (contig, mer) tag-space limit of the walk ladder unless
+    the caller pinned contig_cap explicitly."""
+    if "contig_cap" not in overrides:
+        step = base.get("walk_ladder_step", 4)
+        hi_mer = min(base["k_max"] + step, 27)
+        base["contig_cap"] = min(
+            base["contig_cap"], 1 << min(16, 62 - 2 * hi_mer)
+        )
+    return base
+
+
+def validate_assembly_params(
+    *,
+    k_min: int,
+    k_max: int,
+    k_step: int,
+    min_count: int,
+    kmer_capacity: int,
+    contig_cap: int,
+    max_contig_len: int,
+    walk_capacity: int,
+    link_capacity: int,
+    max_scaffold_len: int,
+    max_members: int,
+    max_ext: int,
+    walk_ladder_step: int,
+    seed_stride: int,
+    run_local_assembly: bool = True,
+    where: str = "AssemblyPlan",
+) -> None:
+    """Reject invalid parameters with actionable errors (fail fast)."""
+    if k_min > k_max:
+        raise PlanError(
+            f"{where}: k_min={k_min} > k_max={k_max}; the iterative-k "
+            f"schedule runs k_min..k_max and must be non-empty"
+        )
+    if k_step <= 0:
+        raise PlanError(f"{where}: k_step={k_step} must be positive")
+    for k in range(k_min, k_max + 1, k_step):
+        if k % 2 == 0:
+            raise PlanError(
+                f"{where}: k={k} is even; even k makes a k-mer equal its "
+                f"own reverse complement, breaking canonicalization — use "
+                f"odd k (adjust k_min/k_step)"
+            )
+        if not 3 <= k <= 31:
+            raise PlanError(
+                f"{where}: k={k} outside the dual-lane packing range 3..31"
+            )
+        if not run_local_assembly:
+            continue
+        lo, mid, hi = _ladder(k, walk_ladder_step)
+        if not lo < mid < hi:
+            raise PlanError(
+                f"{where}: walk ladder {(lo, mid, hi)} for k={k} is not "
+                f"strictly increasing; the dynamic mer-walk needs a rung "
+                f"below and above k (11 < k < 27 with "
+                f"walk_ladder_step={walk_ladder_step})"
+            )
+        tag_bits = min(16, 62 - 2 * hi)
+        if contig_cap > (1 << tag_bits):
+            raise PlanError(
+                f"{where}: contig_cap={contig_cap} exceeds the (contig, "
+                f"mer) tag space 2**{tag_bits} left by the k={k} walk "
+                f"ladder (top rung {hi}); lower contig_cap or "
+                f"walk_ladder_step"
+            )
+    caps = {
+        "min_count": min_count,
+        "kmer_capacity": kmer_capacity,
+        "contig_cap": contig_cap,
+        "max_contig_len": max_contig_len,
+        "walk_capacity": walk_capacity,
+        "link_capacity": link_capacity,
+        "max_scaffold_len": max_scaffold_len,
+        "max_members": max_members,
+        "max_ext": max_ext,
+        "seed_stride": seed_stride,
+    }
+    for name, v in caps.items():
+        if int(v) <= 0:
+            raise PlanError(
+                f"{where}: {name}={v} must be positive — capacities are "
+                f"static buffer sizes chosen before data is seen"
+            )
+
+
+@dataclasses.dataclass(frozen=True)
+class AssemblyPlan:
+    """Per-stage capacity plan + algorithm knobs for one run."""
+
+    # --- k schedule + thresholds (Alg. 1) ---
+    k_min: int = 17
+    k_max: int = 21
+    k_step: int = 4
+    min_count: int = 2
+    policy: ExtensionPolicy = ExtensionPolicy()
+    contig_pseudo_weight: int = 4
+    low_memory: bool = False
+    # --- pruning ---
+    prune_alpha: float = 0.25
+    prune_beta: float = 0.5
+    # --- alignment ---
+    seed_stride: int = 16
+    gapped_align: bool = False
+    # --- kernels: None (by tensor device) or "torch" (plain versions) ---
+    kernel_backend: Optional[str] = None
+    # --- local assembly ---
+    walk_ladder_step: int = 4
+    max_ext: int = 64
+    run_local_assembly: bool = True
+    # --- scaffolding ---
+    min_link_support: int = 2
+    max_members: int = 32
+    # --- capacities (global) ---
+    kmer_capacity: int = 1 << 15
+    contig_cap: int = 512
+    max_contig_len: int = 4096
+    seed_capacity: Optional[int] = None   # default: 2 * kmer_capacity
+    walk_capacity: int = 1 << 16
+    link_capacity: int = 1 << 12
+    max_scaffold_len: int = 1 << 13
+    # --- distributed / streaming execution (not ported) ---
+    num_shards: int = 1
+    slack: float = 2.0
+    pre_capacity: Optional[int] = None
+    shard_table_capacity: Optional[int] = None
+    route_capacity: Optional[int] = None
+    localize_out_factor: int = 2
+    batch_reads: Optional[int] = None
+    bloom_bits: Optional[int] = None
+    # dataset shape (num_reads, max_len), recorded by `from_dataset` /
+    # `bind` so `bytes()` can price the read-proportional buffers
+    dataset_shape: Optional[tuple] = None
+
+    def __post_init__(self):
+        validate_assembly_params(
+            k_min=self.k_min, k_max=self.k_max, k_step=self.k_step,
+            min_count=self.min_count, kmer_capacity=self.kmer_capacity,
+            contig_cap=self.contig_cap, max_contig_len=self.max_contig_len,
+            walk_capacity=self.walk_capacity,
+            link_capacity=self.link_capacity,
+            max_scaffold_len=self.max_scaffold_len,
+            max_members=self.max_members, max_ext=self.max_ext,
+            walk_ladder_step=self.walk_ladder_step,
+            seed_stride=self.seed_stride,
+            run_local_assembly=self.run_local_assembly, where="AssemblyPlan",
+        )
+        if self.kernel_backend not in BACKENDS:
+            raise PlanError(
+                f"AssemblyPlan: kernel_backend={self.kernel_backend!r} "
+                f"unknown; valid: {BACKENDS}"
+            )
+        if self.num_shards != 1 or self.batch_reads is not None:
+            raise PlanError(
+                "AssemblyPlan: only single-device in-memory plans are "
+                "ported (num_shards=1, batch_reads=None); Mesh and "
+                "streaming are later ROADMAP.md Queue 1 items"
+            )
+        if self.seed_capacity is not None and int(self.seed_capacity) <= 0:
+            raise PlanError(
+                f"AssemblyPlan: seed_capacity={self.seed_capacity} must be "
+                f"positive (or None to derive it)"
+            )
+        if self.slack <= 0:
+            raise PlanError(f"AssemblyPlan: slack={self.slack} must be > 0")
+
+    def ks(self) -> list:
+        return list(range(self.k_min, self.k_max + 1, self.k_step))
+
+    def ladder(self, k: int) -> tuple:
+        return _ladder(k, self.walk_ladder_step)
+
+    @property
+    def seed_cap(self) -> int:
+        return self.seed_capacity or 2 * self.kmer_capacity
+
+    @classmethod
+    def from_dataset(
+        cls,
+        reads,
+        k_range: tuple = (17, 21, 4),
+        *,
+        slack: float = 2.0,
+        unique_rate: float = 0.5,
+        **overrides,
+    ) -> "AssemblyPlan":
+        """Size every stage capacity from dataset shape (§II-B).
+
+        Args:
+          reads: anything with `num_reads` / `max_len`; only the shape is
+            read.
+          k_range: (k_min, k_max, k_step) iterative-k schedule.
+          slack: the single headroom dial every capacity scales with.
+          unique_rate: expected unique-kmer : occurrence ratio (~1/coverage
+            for clean data; ->1 for error-heavy data).
+          overrides: any AssemblyPlan field, overriding the derivation.
+        """
+        k_min, k_max, k_step = _normalize_k_range(k_range)
+        R = int(reads.num_reads)
+        L = int(reads.max_len)
+        windows = max(L - k_min + 1, 1)
+        occ = R * windows
+        unique = max(int(unique_rate * occ), 1)
+        kmer_capacity = max(1 << 10, next_pow2(int(slack * unique)))
+        contig_cap = max(256, next_pow2(int(slack * unique // (2 * k_min))))
+        max_contig_len = int(min(max(1 << 11, next_pow2(unique // 4)),
+                                 1 << 15))
+        walk_capacity = max(1 << 12, next_pow2(int(slack * occ / 2)))
+        link_capacity = max(1 << 10, next_pow2(int(slack * 3 * R // 2) // 4))
+        max_scaffold_len = int(min(4 * max_contig_len, 1 << 16))
+        base = dict(
+            k_min=k_min, k_max=k_max, k_step=k_step,
+            kmer_capacity=kmer_capacity,
+            contig_cap=contig_cap,
+            max_contig_len=max_contig_len,
+            walk_capacity=walk_capacity,
+            link_capacity=link_capacity,
+            max_scaffold_len=max_scaffold_len,
+            slack=slack,
+            dataset_shape=(R, L),
+        )
+        base.update(overrides)
+        return cls(**_clamp_contig_cap(base, overrides))
+
+    def stage_bytes(self) -> dict:
+        """Estimated peak static-buffer bytes per stage (the reference's
+        single-shard bill)."""
+        R, L = self.dataset_shape or (0, 0)
+        occ_rows = R * (max(L - self.k_min + 1, 1) if L else 0)
+        return {
+            "kmer_occurrences": occ_rows * 11,
+            "kmer_tables": self.kmer_capacity * 48 * 3,
+            "contigs": self.contig_cap * (self.max_contig_len + 12),
+            "seed_index": self.seed_cap * 22,
+            "alignments": R * 2 * 20,
+            "walk_tables": 3 * self.walk_capacity * 48,
+            "links": self.link_capacity * 24,
+            "scaffolds": self.contig_cap * (
+                self.max_members * 9 + self.max_scaffold_len
+            ),
+        }
+
+    def bind(self, reads) -> "AssemblyPlan":
+        """Copy of this plan with the dataset shape attached."""
+        return dataclasses.replace(
+            self, dataset_shape=(int(reads.num_reads), int(reads.max_len))
+        )
+
+    def bytes(self) -> int:
+        """Estimated peak working-set bytes for one run."""
+        return int(sum(self.stage_bytes().values()))

@@ -1,0 +1,136 @@
+"""Build the CUDA kernels in `csrc/` and bind them with ctypes.
+
+Each `csrc/<name>.cu` is compiled by its own `nvcc` process into a shared
+library with a plain C interface (`extern "C"` launchers that take raw
+pointers, sizes and the CUDA stream, and return a cudaError_t).  All
+sources compile in parallel at first use, for `sm_90a` (the H100), into
+`kernels/_build/` (git-ignored); a library is reused while the hash of its
+sources and flags is unchanged.  No torch headers are involved, so a build
+takes seconds.  A failed build raises with the compiler's output.
+
+    from repro_torch.kernels import build
+    lib = build.library("dht_probe")   # ctypes.CDLL, argtypes set
+    build.last_build()                 # seconds and -Xptxas -v report
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = (
+    "-gencode=arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-lineinfo",
+    "-shared",
+    "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+# Library -> {C function: argtypes}.  Pointers, and the stream, are c_void_p.
+SIGNATURES = {
+    "kmer_extract": {
+        "kmer_extract_launch": [_P, _P, _L, _L, _I] + [_P] * 7 + [_P],
+    },
+    "dht_probe": {
+        "dht_lookup_launch": [_P, _P, _P, _P, _L, _P, _P, _P, _L, _P, _P],
+        "dht_insert_launch": [_P, _P, _P, _P, _L, _P, _P, _P, _L]
+        + [_P] * 8 + [_P],
+    },
+    "seed_probe": {
+        "seed_probe_max_seeds": [],
+        "seed_probe_launch": [_P, _P, _L, _L, _P, _P, _P, _P, _L,
+                              _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+    },
+}
+
+_lock = threading.Lock()
+_libs: dict = {}
+_report: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError(
+        "nvcc not found: the CUDA kernels of repro_torch are built from "
+        f"{CSRC} at first use and need the CUDA toolkit"
+    )
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _bind(name: str, path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    lib.repro_error_string.argtypes = [ctypes.c_int]
+    lib.repro_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def build_all() -> dict:
+    """Compile every library not yet built (one nvcc each, in parallel)."""
+    with _lock:
+        todo = [n for n in SIGNATURES if n not in _libs]
+        if not todo:
+            return _libs
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        outs = {n: BUILD_DIR / f"{n}-{_digest(n)}.so" for n in todo}
+        procs = {}
+        for n in todo:
+            if outs[n].exists():
+                continue
+            tmp = outs[n].with_suffix(".tmp.so")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+                   str(CSRC / f"{n}.cu")]
+            procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT,
+                                         text=True), tmp)
+        logs, failed = {}, []
+        for n, (proc, tmp) in procs.items():
+            logs[n] = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(n)
+            else:
+                tmp.replace(outs[n])
+        if failed:
+            raise RuntimeError(
+                "nvcc failed for " + ", ".join(failed) + ":\n"
+                + "\n".join(logs[n] for n in failed))
+        for n in todo:
+            _libs[n] = _bind(n, outs[n])
+        _report.update(seconds=time.perf_counter() - t0, compiled=list(procs),
+                       log="\n".join(logs.values()))
+        return _libs
+
+
+def library(name: str) -> ctypes.CDLL:
+    libs = _libs if name in _libs else build_all()
+    return libs[name]
+
+
+def last_build() -> dict:
+    """{'seconds', 'compiled', 'log'} of the last build_all that compiled."""
+    return dict(_report)

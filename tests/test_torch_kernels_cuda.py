@@ -1,0 +1,144 @@
+"""CUDA kernels against their plain versions, on the card (marker `cuda`).
+
+Each hand-written kernel (`repro_torch/kernels/csrc/`) is held to its plain
+PyTorch version (`repro_torch.kernels.ref`, itself held to the JAX
+reference by the other test_torch_* files) at small shapes with the edge
+cases of those files, plus the whole `contig_rounds` on the card against
+the CPU run.  Skipped where no CUDA card is visible; on the card:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
+
+Tolerance: exact, every output lane.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.api import Assembler, AssemblyPlan, Local
+from repro_torch.core import dht
+from repro_torch.core.kmer_analysis import ExtensionPolicy
+from repro_torch.data import mgsim
+from repro_torch.kernels import ops
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _same(got, want):
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and torch.equal(g, w), f"output {i}"
+
+
+def _reads(rng, R, L, dev, n_frac=0.05):
+    bases = rng.integers(0, 4, size=(R, L)).astype(np.uint8)
+    bases[rng.random((R, L)) < n_frac] = 4
+    lengths = rng.integers(0, L + 1, size=R).astype(np.int32)
+    return (torch.from_numpy(bases).to(dev),
+            torch.from_numpy(lengths).to(dev))
+
+
+def _keys(rng, n, dev, key_space=1 << 40, dup_frac=0.3):
+    vals = rng.integers(0, key_space, size=n, dtype=np.int64)
+    d = rng.random(n) < dup_frac
+    vals[d] = vals[rng.integers(0, n, size=int(d.sum()))]
+    hi = torch.from_numpy((vals >> 32).astype(np.int32)).to(dev)
+    lo = torch.from_numpy((vals & 0xFFFFFFFF).astype(np.uint32).view(
+        np.int32)).to(dev)
+    return hi, lo
+
+
+@pytest.mark.parametrize("k", [3, 15, 16, 17, 21, 31])
+@pytest.mark.parametrize("R,L", [(1, 40), (37, 150), (300, 77)])
+def test_kmer_extract_kernel_equals_plain(dev, k, R, L):
+    bases, lengths = _reads(np.random.default_rng(k * R + L), R, L, dev)
+    _same(ops.kmer_extract(bases, lengths, k=k),
+          ops.kmer_extract(bases, lengths, k=k, backend="torch"))
+
+
+@pytest.mark.parametrize("n,cap", [(5, 16), (60, 64), (80, 64),
+                                   (5000, 8192), (20000, 16384)])
+def test_dht_insert_and_lookup_kernels_equal_plain(dev, n, cap):
+    rng = np.random.default_rng(n + cap)
+    hi, lo = _keys(rng, n, dev)
+    valid = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+    t0 = dht.empty_table(cap, dev)
+    got = ops.dht_insert(*t0, hi, lo, valid)
+    want = ops.dht_insert(*t0, hi, lo, valid, backend="torch")
+    _same(got, want)
+    # a second batch dedupes against the filled table
+    hi2, lo2 = _keys(rng, n, dev)
+    hi2[: n // 2], lo2[: n // 2] = hi[: n // 2], lo[: n // 2]
+    got2 = ops.dht_insert(*got[:4], hi2, lo2, valid)
+    _same(got2, ops.dht_insert(*want[:4], hi2, lo2, valid, backend="torch"))
+    table = got2[:4]
+    qhi = torch.stack([hi, hi2]).contiguous()
+    qlo = torch.stack([lo, lo2]).contiguous()
+    qv = torch.from_numpy(rng.random((2, n)) < 0.8).to(dev)
+    _same([ops.dht_lookup(*table, qhi, qlo, qv)],
+          [ops.dht_lookup(*table, qhi, qlo, qv, backend="torch")])
+
+
+def _seed_index(rng, dev, capacity, seed_len, C=6, clen=200):
+    contigs = torch.from_numpy(rng.integers(0, 4, size=(C, clen)).astype(
+        np.uint8)).to(dev)
+    contigs[1, 10:60] = contigs[0, 40:90]
+    from repro_torch.core.alignment import build_seed_index
+    from repro_torch.core.types import ContigSet
+    cs = ContigSet(contigs, torch.full((C,), clen, dtype=torch.int32,
+                                       device=dev),
+                   torch.ones(C, dtype=torch.float32, device=dev))
+    alive = torch.ones(C, dtype=torch.bool, device=dev)
+    return contigs, build_seed_index(cs, alive, seed_len=seed_len,
+                                     capacity=capacity, backend="torch")
+
+
+@pytest.mark.parametrize("seed_len,capacity,R", [(15, 1 << 12, 9),
+                                                 (16, 1 << 12, 1),
+                                                 (17, 1 << 12, 7),
+                                                 (27, 1 << 12, 500),
+                                                 (21, 16, 64)])
+def test_seed_probe_kernel_equals_plain(dev, seed_len, capacity, R):
+    rng = np.random.default_rng(seed_len * capacity + R)
+    contigs, index = _seed_index(rng, dev, capacity, seed_len)
+    L = 90
+    starts = rng.integers(0, contigs.shape[1] - L, size=R)
+    rows = rng.integers(0, contigs.shape[0], size=R)
+    bases = torch.stack([contigs[r, s:s + L] for r, s in zip(rows, starts)])
+    flip = torch.from_numpy(rng.random(R) < 0.5).to(dev)
+    bases = torch.where(flip[:, None], (3 - bases).flip(1), bases)
+    bases[torch.from_numpy(rng.random((R, L)) < 0.02).to(dev)] = 4
+    lengths = torch.from_numpy(rng.integers(0, L + 1, size=R).astype(
+        np.int32)).to(dev)
+    t = index.table
+    args = (bases.contiguous(), lengths, *t, index.contig, index.pos,
+            index.flip, index.multi)
+    positions = tuple(range(0, L - seed_len + 1, 16)) + (L - seed_len,)
+    got = ops.seed_probe(*args, seed_len=seed_len, positions=positions)
+    _same(got, ops.seed_probe(*args, seed_len=seed_len, positions=positions,
+                              backend="torch"))
+
+
+def test_contig_rounds_on_card_equals_cpu(dev):
+    plan = AssemblyPlan(
+        k_min=17, k_max=21, k_step=4, kmer_capacity=1 << 14, contig_cap=256,
+        max_contig_len=2048, policy=ExtensionPolicy(err_rate=0.05),
+        run_local_assembly=False)
+    comm = mgsim.sample_community(41, num_genomes=2, genome_len=300,
+                                  abundance_sigma=0.3)
+    reads, _ = mgsim.generate_reads(42, comm, num_pairs=300, read_len=60,
+                                    err_rate=0.003)
+    ops.reset_launches()
+    got = Assembler(plan, Local(dev)).contig_rounds(reads)
+    assert all(ops.LAUNCHES[n] > 0 for n in ops.KERNELS), ops.LAUNCHES
+    want = Assembler(plan, Local("cpu")).contig_rounds(reads)
+    for g, w in zip(got[:3], want[:3]):
+        g = g if isinstance(g, tuple) else (g,)
+        w = w if isinstance(w, tuple) else (w,)
+        _same([x.cpu() for x in g], list(w))
+    assert got[3] == want[3]
