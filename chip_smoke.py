@@ -1,29 +1,44 @@
 """Chip smoke test of the PyTorch/CUDA port (src/repro_torch) on one card.
 
-    python3 chip_smoke.py [--num-pairs N]
+    python3 chip_smoke.py [--num-pairs N] [--num-genomes G]
 
-Drives the port's main path, Algorithm 1 (`Assembler.contig_rounds`, no
-local assembly), on a virome-like community: 160 genomes of 10-30 kbp (10
-of them 1%-divergent strains), 600k reads of 2 x 150 bp at ~30x mean
-coverage.  Steps:
+Drives the port's two main paths on one virome-like community: 24
+genomes of 10-30 kbp (4 of them 1%-divergent strains), 150k reads of
+2 x 150 bp at ~45x mean coverage.  The community is sized so the first
+round's traversal fits the contig_cap of 4096 that the reference's
+(contig, mer) tag space allows with the (17, 21, 25) walk ladder: with
+40 genomes (+4 strains) and 240k reads that traversal finds 5893 chains.
+Steps:
 
   1. card name and power limit (nvidia-smi);
-  2. build the four CUDA kernels from src/repro_torch/kernels/csrc;
+  2. build the five CUDA kernels' libraries from
+     src/repro_torch/kernels/csrc (one nvcc each, in parallel);
   3. make the reads (host numpy, timed apart);
-  4. run contig_rounds with the kernels, launch counts reset just before
-     and read just after: each kernel must have launched; the first
-     round's traversal against contig_cap and max_contig_len; then once
-     more under torch.profiler (device time by operator, busy share);
-  5. hold each kernel against its plain PyTorch version on the card, on
-     the inputs of its largest call in a third run, bit for bit, and time
-     both (CUDA events, median of 20 after 2 warm-ups);
-  6. run contig_rounds with the plain versions (backend "torch") on the
-     card: contigs, alive and alignments must equal step 4;
-  7. a small community on the card against the same run on the CPU.
+  4. path 1, Algorithm 1: `contig_rounds` with run_local_assembly=False,
+     launch counts reset just before and read just after: each of
+     kmer_extract, dht_lookup, dht_insert and seed_probe must have
+     launched; the first round's chains against contig_cap; once more
+     under torch.profiler; each of the four kernels against its plain
+     PyTorch version on the inputs of its largest call, bit for bit, and
+     timed; the plain path (backend "torch") equal to the kernel path;
+  5. path 2, `Assembler(plan, Local()).assemble` (local assembly,
+     scaffolding, gap closing), counts reset just before and read just
+     after: all five kernels launched, mer_walk at least 3 times; per
+     stage times (host clock, synchronized, through the hook); per round
+     extension, links, scaffolds, closed and open gaps, N50, peak memory;
+     a quality floor on the longest scaffolds; once more under
+     torch.profiler; each of the five kernels against its plain version
+     at its largest call on this path (mer_walk at its extension and its
+     gap-closing call, dht_insert at the walk tables and at the other
+     tables), bit for bit, timed, with this path's launch counts; the
+     plain path equal to the kernel path;
+  6. small inputs on the card against the same runs on the CPU (both
+     paths).
 
 Any failure raises (non-zero exit, no result).  The line before the last
-is one JSON object with a record per kernel; the last line is
-{"ok": true, "device": {...}}.  Without a CUDA card it exits non-zero.
+is one JSON object with a record per kernel, path and call site (`path`
+names the main path whose shapes and launch counts it carries); the last line
+is {"ok": true, "device": {...}}.  Without a CUDA card it exits non-zero.
 """
 from __future__ import annotations
 
@@ -50,12 +65,17 @@ KERNELS = {
                    "src/repro/kernels/dht_probe.py:183"),
     "seed_probe": ("src/repro_torch/kernels/csrc/seed_probe.cu",
                    "src/repro/kernels/seed_probe.py:198"),
+    "mer_walk": ("src/repro_torch/kernels/csrc/mer_walk.cu",
+                 "src/repro/kernels/mer_walk.py:296"),
 }
+PATH1_KERNELS = ("kmer_extract", "dht_lookup", "dht_insert", "seed_probe")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 SCALAR_OPS_PER_S = 67e12    # H100 SXM 32-bit rate outside the tensor cores
-# floor on the aligned read share and on the share of long contigs that are
-# verbatim genome substrings: a sanity gate against garbage, not a target
+# floor on the aligned read share and on the share of long contigs (or
+# scaffold pieces) that are verbatim genome substrings: a sanity gate
+# against garbage, not a target
 MIN_QUALITY = 0.5
+DEFAULT_PAIRS, DEFAULT_GENOMES = 75_000, 20
 
 
 def log(*a):
@@ -87,13 +107,18 @@ def median_ms(fn, reps=20, warmup=2) -> float:
 
 
 class Recorder:
-    """Wraps the ops wrappers to keep the arguments of each kernel's
-    largest call (by elements of its first tensor) in the main path."""
+    """Wraps the ops wrappers to keep, per row, the arguments of the
+    largest call (by elements of its first tensor; mer_walk by active
+    walkers) in a run of a main path, and to count the calls of each row.
+    `row(name, args, kw)` names the row of a call: by default the kernel's
+    name; a path may split a kernel's calls by call site."""
 
-    def __init__(self, ops):
+    def __init__(self, ops, names, row=None):
         self.ops = ops
         self.calls = {}
-        self.orig = {name: getattr(ops, name) for name in KERNELS}
+        self.counts = {}
+        self.row = row or (lambda name, args, kw: name)
+        self.orig = {name: getattr(ops, name) for name in names}
 
     def __enter__(self):
         for name, fn in self.orig.items():
@@ -106,12 +131,29 @@ class Recorder:
 
     def _wrap(self, name, fn):
         def call(*args, **kw):
-            size = args[4 if name.startswith("dht") else 0].numel()
-            if name not in self.calls or size > self.calls[name][0]:
-                self.calls[name] = (size, args, {
+            key = self.row(name, args, kw)
+            if name == "mer_walk":
+                size = int(args[4].sum())
+            else:
+                size = args[4 if name.startswith("dht") else 0].numel()
+            if key not in self.calls or size > self.calls[key][0]:
+                self.calls[key] = (size, name, args, {
                     k: v for k, v in kw.items() if k != "backend"})
+            self.counts[key] = self.counts.get(key, 0) + 1
             return fn(*args, **kw)
         return call
+
+    def check_counts(self, launches):
+        """The recorded run made the launches of the clean run (the same
+        deterministic path), kernel by kernel."""
+        per_op = {}
+        for key, n in self.counts.items():
+            op = self.calls[key][1]
+            per_op[op] = per_op.get(op, 0) + n
+        want = {op: launches[op] for op in self.orig}
+        if per_op != want:
+            raise AssertionError(f"recorded run's calls {per_op} != clean "
+                                 f"run's launches {want}")
 
 
 def max_abs_err(got, want) -> float:
@@ -125,9 +167,30 @@ def max_abs_err(got, want) -> float:
     return float(err)
 
 
-def bound(name, args, kw, ops) -> tuple:
-    """(bound_ms, bound_by): the larger of bytes / HBM rate and
-    operations / scalar rate, for the work these inputs need."""
+def walk_work(args, kw, ops) -> dict:
+    """Walker steps taken and table slots probed by this walk (the plain
+    version counts them; the kernel does the same work)."""
+    wt, start_hi, start_lo, contig, active = args
+    target_hi = kw.get("target_hi")
+    target_lo = kw.get("target_lo")
+    if target_hi is None:
+        target_hi = torch.zeros_like(start_hi)
+        target_lo = torch.zeros_like(start_lo)
+    counts = {}
+    ops.ref.mer_walk_ref(
+        start_hi, start_lo, contig, active, target_hi, target_lo,
+        tuple(t.slot_hi for t in wt.tables),
+        tuple(t.slot_lo for t in wt.tables), tuple(t.used for t in wt.tables),
+        tuple(t.max_probe for t in wt.tables), tuple(wt.right_hist),
+        tuple(wt.left_hist), counts=counts,
+        **{k: v for k, v in kw.items() if k not in ("target_hi",
+                                                    "target_lo")})
+    return counts
+
+
+def bound(name, args, kw, ops, row) -> tuple:
+    """(bound_ms, bound_by) of kernel `name`: the larger of bytes / HBM
+    rate and operations / scalar rate, for the work these inputs need."""
     if name == "kmer_extract":
         bases, lengths = args
         R, L = bases.shape
@@ -145,7 +208,7 @@ def bound(name, args, kw, ops) -> tuple:
         cap, n = args[0].numel(), args[4].numel()
         nbytes = 13 * n + 18 * cap + 8
         nops = int(args[6].sum()) * 40
-    else:  # seed_probe
+    elif name == "seed_probe":
         bases, lengths = args[0], args[1]
         t = args[2:6]
         R, L = bases.shape
@@ -160,13 +223,51 @@ def bound(name, args, kw, ops) -> tuple:
         S = len(positions)
         nbytes = R * L + 4 * R + R * 2 * 9 + 9 * n_valid + 10 * n_hit
         nops = R * S * (3 * seed_len + 40) + R * S * S * 4
+    else:  # mer_walk: per step one 16-byte histogram row, 9 B per slot
+        E = args[1].numel()
+        work = walk_work(args, kw, ops)
+        target = 8 if kw.get("seed_len") else 0
+        nbytes = (E * (4 + 4 + 4 + 1 + target)
+                  + 9 * work["probes"] + 16 * work["steps"]
+                  + E * (kw["max_ext"] + 4 + 4 + 1 + 4))
+        nops = 80 * work["steps"] + 8 * work["probes"]
+        log(f"  {row}: {E} walkers, {work['steps']} steps, "
+            f"{work['probes']} slots probed")
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / SCALAR_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def hold_against_plain(row, call, ops, launches, path):
+    """The kernel against its plain version on one recorded call: equal
+    bit for bit, both timed; returns the row's JSON record."""
+    _, name, cargs, ckw = call
+    source, replaces = KERNELS[name]
+    fn = getattr(ops, name)
+    got = fn(*cargs, **ckw)
+    want = fn(*cargs, **ckw, backend="torch")
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = max_abs_err(got, want)
+    if err != 0:
+        raise AssertionError(f"{row}: kernel != plain version "
+                             f"(max abs err {err})")
+    del got, want
+    ms = median_ms(lambda: fn(*cargs, **ckw))
+    plain_ms = median_ms(lambda: fn(*cargs, **ckw, backend="torch"))
+    b_ms, b_by = bound(name, cargs, ckw, ops, row)
+    shapes = [tuple(a.shape) for a in cargs if torch.is_tensor(a)]
+    log(f"{row}: equal to plain (tolerance 0), inputs {shapes}: "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by})")
+    return dict(
+        name=row, route="cuda", source=source, replaces=replaces,
+        launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, path=path)
+
+
 def n50(lengths) -> int:
-    ls = np.sort(lengths)[::-1]
+    ls = np.sort(np.asarray(lengths))[::-1]
     if not len(ls):
         return 0
     c = np.cumsum(ls)
@@ -197,29 +298,71 @@ def run_rounds(Assembler, Local, plan, reads, label):
     return out, times, asm.ctx.overflow()
 
 
-def profile_rounds(Assembler, Local, plan, reads, top=12):
-    """Device time over one contig_rounds: the device's busy share of the
+class StageClock:
+    """`assemble` hook: synchronized host time and mer_walk launches of
+    each stage (the stage that ends at each event; the last one, gap
+    closing, ends when assemble returns)."""
+
+    def __init__(self, ops):
+        self.ops = ops
+        self.stages = []
+
+    def start(self):
+        torch.cuda.synchronize()
+        self.t0 = time.perf_counter()
+        self.w0 = self.ops.LAUNCHES["mer_walk"]
+
+    def __call__(self, stage, info):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        w1 = self.ops.LAUNCHES["mer_walk"]
+        label = f"{stage} k={info['k']}" if "k" in info else stage
+        self.stages.append((label, t1 - self.t0, w1 - self.w0))
+        self.t0, self.w0 = t1, w1
+
+    def finish(self):
+        self("gap_closing", {})
+
+    def walks(self, prefix) -> int:
+        return sum(w for label, _, w in self.stages
+                   if label.startswith(prefix))
+
+
+def run_assemble(Assembler, Local, plan, reads, ops, label):
+    """assemble with per-stage wall times (synchronized, via the hook)."""
+    clock = StageClock(ops)
+    clock.start()
+    out = Assembler(plan, Local()).assemble(reads, hook=clock)
+    clock.finish()
+    for name, t, w in clock.stages:
+        log(f"[{label}] stage {name}: {t:.3f} s, mer_walk launches {w}")
+    log(f"[{label}] assemble total: "
+        f"{sum(t for _, t, _ in clock.stages):.3f} s")
+    return out, clock
+
+
+def profile(fn, title, top=12):
+    """Device time over one call of fn(): the device's busy share of the
     wall time (one stream, so kernels do not overlap), then the kernels
     and the PyTorch operators that take the most of it."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile as tprofile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        Assembler(plan, Local()).contig_rounds(reads)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
-    log(f"profiled contig_rounds: wall {wall:.3f} s, device busy "
-        f"{busy:.3f} s ({100 * busy / wall:.1f}%, idle "
-        f"{100 * (1 - busy / wall):.1f}%)")
+    log(f"profiled {title}: wall {wall:.3f} s, device busy {busy:.3f} s "
+        f"({100 * busy / wall:.1f}%, idle {100 * (1 - busy / wall):.1f}%)")
     operators = [e for e in events if e.device_type == DeviceType.CPU
                  and e.self_device_time_total > 0]
-    for title, rows in (("kernels", kernels), ("operators", operators)):
-        log(f"  top {title} by device time:")
+    for name, rows in (("kernels", kernels), ("operators", operators)):
+        log(f"  top {name} by device time:")
         for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:top]:
             log(f"  {e.self_device_time_total / 1e3:10.2f} ms "
                 f"{e.count:7d} calls  {e.key[:100]}")
@@ -228,9 +371,28 @@ def profile_rounds(Assembler, Local, plan, reads, top=12):
 def assert_same(a, b, what):
     la = a if isinstance(a, tuple) else (a,)
     lb = b if isinstance(b, tuple) else (b,)
+    if len(la) != len(lb):
+        raise AssertionError(f"{what} differ")
     for x, y in zip(la, lb):
         if x.shape != y.shape or not torch.equal(x.cpu(), y.cpu()):
             raise AssertionError(f"{what} differ")
+
+
+ASSEMBLE_KEYS = ("contigs", "alive", "alignments", "links", "suspended",
+                 "components", "scaffolds", "scaffold_seqs")
+
+
+def assert_same_assembly(a, b, what):
+    for key in ASSEMBLE_KEYS:
+        assert_same(a[key], b[key], f"{what}: {key}")
+    if a["stats"] != b["stats"]:
+        raise AssertionError(f"{what}: stats differ")
+
+
+def _genome_texts(comm):
+    comp = np.array([3, 2, 1, 0, 4], np.uint8)
+    return ([g.tobytes() for g in comm.genomes]
+            + [comp[g[::-1]].tobytes() for g in comm.genomes])
 
 
 def genome_matches(contigs, alive, comm, top=200) -> float:
@@ -241,9 +403,7 @@ def genome_matches(contigs, alive, comm, top=200) -> float:
     order = order[lens[order] > 0]
     if not len(order):
         return 0.0
-    comp = np.array([3, 2, 1, 0, 4], np.uint8)
-    genomes = [g.tobytes() for g in comm.genomes]
-    genomes += [comp[g[::-1]].tobytes() for g in comm.genomes]
+    genomes = _genome_texts(comm)
     bases = contigs.bases[torch.from_numpy(order.copy()).to(
         contigs.bases.device)].cpu().numpy()
     hits = sum(any(bases[i, :lens[c]].tobytes() in g for g in genomes)
@@ -251,56 +411,35 @@ def genome_matches(contigs, alive, comm, top=200) -> float:
     return hits / len(order)
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--num-pairs", type=int, default=300_000,
-                    help="read pairs to simulate (default 300000)")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA card visible; this script measures the "
-              "port on the card only", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.api import Assembler, AssemblyPlan, Local
-    from repro_torch.core import dbg
-    from repro_torch.core.kmer_analysis import ExtensionPolicy
-    from repro_torch.data import mgsim
-    from repro_torch.kernels import build, ops
+def scaffold_piece_matches(seqs, comm, top=200) -> tuple:
+    """Split the `top` longest scaffolds at their N runs; (share of the
+    pieces found verbatim in a genome, number of pieces)."""
+    lens = seqs.lengths.cpu().numpy()
+    order = np.argsort(lens)[::-1][:top]
+    order = order[lens[order] > 0]
+    genomes = _genome_texts(comm)
+    bases = seqs.bases[torch.from_numpy(order.copy()).to(
+        seqs.bases.device)].cpu().numpy()
+    pieces = []
+    for i, s in enumerate(order):
+        row = bases[i, :lens[s]]
+        edge = np.diff(np.r_[0, (row < 4).astype(np.int8), 0])
+        for a, b in zip(np.flatnonzero(edge == 1),
+                        np.flatnonzero(edge == -1)):
+            pieces.append(row[a:b].tobytes())
+    if not pieces:
+        return 0.0, 0
+    hits = sum(any(p in g for g in genomes) for p in pieces)
+    return hits / len(pieces), len(pieces)
 
-    card = card_line()
-    log(card)
-    log("torch", torch.__version__, "cuda", torch.version.cuda,
-        "device", torch.cuda.get_device_name(0))
 
-    t0 = time.perf_counter()
-    build.build_all()
-    rep = build.last_build()
-    log(f"kernel build: {time.perf_counter() - t0:.1f} s "
-        f"(nvcc, parallel: {rep.get('compiled')})")
-    for line in rep.get("log", "").splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas:", line.strip())
-
-    t0 = time.perf_counter()
-    comm = mgsim.sample_community(0, num_genomes=150,
-                                  genome_len=(10_000, 30_000),
-                                  strain_pairs=10)
-    reads, _ = mgsim.generate_reads(1, comm, num_pairs=args.num_pairs,
-                                    read_len=150, insert_mean=400,
-                                    insert_sd=30, err_rate=0.002)
-    content = sum(len(g) for g in comm.genomes)
-    log(f"data: {len(comm.genomes)} genomes, {content} bp, "
-        f"{reads.num_reads} reads x {reads.max_len} bp "
-        f"({reads.num_reads * reads.max_len / content:.1f}x), "
-        f"generated in {time.perf_counter() - t0:.1f} s on the host")
-    if args.num_pairs != 300_000:
-        log(f"CUT: num_pairs {args.num_pairs} instead of 300000")
-
-    plan = AssemblyPlan.from_dataset(
-        reads, (21, 31, 10), unique_rate=0.1, run_local_assembly=False,
-        contig_cap=1 << 13, max_contig_len=1 << 15,
-    )
-    log(f"plan: ks={plan.ks()} kmer_capacity={plan.kmer_capacity} "
+def phase_contig_rounds(api, ops, dbg, reads, comm):
+    """Path 1: Algorithm 1 (no local assembly) on the four slice-1 kernels.
+    Returns the JSON records of the four kernels."""
+    Assembler, AssemblyPlan, Local = api
+    plan = AssemblyPlan.from_dataset(reads, (17, 21, 4), unique_rate=0.1,
+                                     run_local_assembly=False)
+    log(f"path 1 plan: ks={plan.ks()} kmer_capacity={plan.kmer_capacity} "
         f"seed_cap={plan.seed_cap} contig_cap={plan.contig_cap} "
         f"max_contig_len={plan.max_contig_len} "
         f"plan.bytes()={plan.bytes() / 1e9:.2f} GB")
@@ -315,9 +454,9 @@ def main(argv=None) -> int:
     peak = torch.cuda.max_memory_allocated()
     log(f"launches in contig_rounds: {launches}")
     log(f"peak device memory: {peak / 1e9:.2f} GB; overflow: {ovf}")
-    missing = [n for n in KERNELS if launches[n] == 0]
+    missing = [n for n in PATH1_KERNELS if launches[n] == 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
+        raise AssertionError(f"kernels never launched on path 1: "
                              f"{missing}")
     if ovf.get("kmer_table"):
         raise AssertionError(f"k-mer table overflow: {ovf}")
@@ -344,48 +483,33 @@ def main(argv=None) -> int:
     trav = dbg.traverse(kset, dbg.build_index(kset), k=plan.k_min,
                         contig_cap=plan.contig_cap,
                         max_len=plan.max_contig_len)
-    log(f"round k={plan.k_min} traversal: {int(trav.n_contigs)} chains "
+    n_chains = int(trav.n_contigs)
+    log(f"round k={plan.k_min} traversal: {n_chains} chains "
         f"(contig_cap {plan.contig_cap}), longest "
         f"{int(trav.node_pos.max()) + plan.k_min} bp (max_contig_len "
         f"{plan.max_contig_len})")
     del ctx, kset, trav
+    if n_chains > plan.contig_cap:
+        raise AssertionError("the community overflows contig_cap: lower "
+                             "--num-genomes")
 
     # ---- where the time goes: one profiled run ----
-    profile_rounds(Assembler, Local, plan, reads)
+    profile(lambda: Assembler(plan, Local()).contig_rounds(reads),
+            "contig_rounds")
 
     # ---- the inputs of each kernel's largest call (a warm run) ----
-    with Recorder(ops) as rec:
+    with Recorder(ops, PATH1_KERNELS) as rec:
         t0 = time.perf_counter()
         Assembler(plan, Local()).contig_rounds(reads)
         torch.cuda.synchronize()
         log(f"warm contig_rounds (recording inputs): "
             f"{time.perf_counter() - t0:.3f} s")
+    rec.check_counts(launches)
 
-    # ---- each kernel against its plain version, at the main path's shapes
-    records = []
-    for name, (source, replaces) in KERNELS.items():
-        _, cargs, ckw = rec.calls[name]
-        fn = getattr(ops, name)
-        got = fn(*cargs, **ckw)
-        want = fn(*cargs, **ckw, backend="torch")
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        err = max_abs_err(got, want)
-        if err != 0:
-            raise AssertionError(f"{name}: kernel != plain version "
-                                 f"(max abs err {err})")
-        ms = median_ms(lambda: fn(*cargs, **ckw))
-        plain_ms = median_ms(lambda: fn(*cargs, **ckw, backend="torch"))
-        b_ms, b_by = bound(name, cargs, ckw, ops)
-        shapes = [tuple(a.shape) for a in cargs if torch.is_tensor(a)]
-        log(f"{name}: equal to plain (tolerance 0), inputs {shapes}: "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by})")
-        records.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name], max_abs_err=err, ms=ms,
-            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=None))
+    # ---- each kernel against its plain version, at the path's shapes ----
+    records = [hold_against_plain(name, rec.calls[name], ops,
+                                  launches[name], "contig_rounds")
+               for name in PATH1_KERNELS]
     del rec
 
     # ---- the same path with the plain versions on the card ----
@@ -403,24 +527,218 @@ def main(argv=None) -> int:
         raise AssertionError("iteration stats differ (kernels vs plain)")
     log(f"plain path: identical contigs, alive, alignments, stats; "
         f"{sum(p_times):.3f} s vs kernels {sum(times):.3f} s")
+    return records
 
-    # ---- small input: card against the CPU run ----
+
+def assemble_row(plan):
+    """Rows of path 2's kernel calls: `<kernel>_assemble`, with mer_walk
+    split into its extension and gap-closing walks and the walk-table
+    inserts (the tables at `walk_capacity`) apart from the other inserts."""
+    if plan.walk_capacity in (plan.kmer_capacity, plan.seed_cap):
+        raise AssertionError("walk tables share a capacity with another "
+                             "table: their inserts cannot be told apart")
+
+    def row(name, args, kw):
+        if name == "mer_walk":
+            return "mer_walk_gap" if kw.get("seed_len") else \
+                "mer_walk_extend"
+        if name == "dht_insert" and args[0].numel() == plan.walk_capacity:
+            return "dht_insert_walk"
+        return f"{name}_assemble"
+    return row
+
+
+def phase_assemble(api, ops, reads, comm):
+    """Path 2: `assemble` with local assembly, scaffolding and gap
+    closing.  Returns the JSON records of its kernel rows: each of the
+    five kernels at its largest call on this path."""
+    Assembler, AssemblyPlan, Local = api
+    plan = AssemblyPlan.from_dataset(reads, (17, 21, 4), unique_rate=0.1)
+    log(f"path 2 plan: ks={plan.ks()} ladders "
+        f"{[plan.ladder(k) for k in plan.ks()]} contig_cap="
+        f"{plan.contig_cap} walk_capacity={plan.walk_capacity} "
+        f"link_capacity={plan.link_capacity} max_members="
+        f"{plan.max_members} max_scaffold_len={plan.max_scaffold_len} "
+        f"plan.bytes()={plan.bytes() / 1e9:.2f} GB")
+
+    # ---- main path with the kernels (clean: no recorder, no profiler) ----
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    out, clock = run_assemble(Assembler, Local, plan, reads, ops, "kernels")
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"launches in assemble: {launches}")
+    log(f"peak device memory (assemble): {peak / 1e9:.2f} GB; overflow: "
+        f"{out['overflow']}")
+    missing = [n for n in ops.KERNELS if launches[n] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on path 2: "
+                             f"{missing}")
+    if launches["mer_walk"] < 3:
+        raise AssertionError(f"mer_walk launched {launches['mer_walk']} "
+                             f"times, expected 2 extension + 1 gap walks")
+    walks_extend = clock.walks("contig_rounds")
+    walks_gap = clock.walks("gap_closing")
+    if walks_extend + walks_gap != launches["mer_walk"] or not (
+            walks_extend and walks_gap):
+        raise AssertionError(f"mer_walk launches by stage: {clock.stages}")
+    for s in out["stats"]:
+        log(f"[kernels] round k={s.k}: n_contigs={s.n_contigs} live, "
+            f"extended_bases={s.extended_bases}, n_kmers={s.n_kmers}, "
+            f"aligned_frac={s.aligned_frac:.4f}, overflow={s.overflow}")
+    if out["overflow"].get("kmer_table"):
+        raise AssertionError(f"k-mer table overflow: {out['overflow']}")
+    scaffs, seqs, links = out["scaffolds"], out["scaffold_seqs"], out["links"]
+    nm = scaffs.n_members
+    n_gaps = int((nm - 1).clamp(min=0).sum())
+    closed = int(seqs.closed.sum())
+    slens = seqs.lengths.cpu().numpy()
+    slens = slens[slens > 0]
+    share, n_pieces = scaffold_piece_matches(seqs, comm)
+    if not (len(slens) and torch.isfinite(links.gap).all()
+            and seqs.bases.shape == (plan.contig_cap, plan.max_scaffold_len)
+            and torch.isfinite(out["contigs"].depths).all()):
+        raise AssertionError("assemble output has the wrong shape, no "
+                             "scaffold or non-finite values")
+    log(f"scaffolds: {int(scaffs.n_scaffolds)}, multi-contig "
+        f"{int((nm >= 2).sum())}, links {int(links.valid.sum())} valid, "
+        f"suspended {int(out['suspended'].sum())}, gaps closed {closed} / "
+        f"open {n_gaps - closed}; scaffold N50 {n50(slens)}, longest "
+        f"{int(slens.max())}, {int(slens.sum())} bp; {share:.3f} of "
+        f"{n_pieces} pieces (the 200 longest scaffolds split at N runs) "
+        f"are verbatim genome substrings")
+    if share < MIN_QUALITY:
+        raise AssertionError("scaffold quality collapsed")
+
+    # ---- where the time goes: one profiled run ----
+    profile(lambda: Assembler(plan, Local()).assemble(reads), "assemble")
+
+    # ---- the inputs of each row's largest call (a warm run) ----
+    with Recorder(ops, ops.KERNELS, assemble_row(plan)) as rec:
+        t0 = time.perf_counter()
+        Assembler(plan, Local()).assemble(reads)
+        torch.cuda.synchronize()
+        log(f"warm assemble (recording inputs): "
+            f"{time.perf_counter() - t0:.3f} s")
+    rec.check_counts(launches)
+    if (rec.counts["mer_walk_extend"], rec.counts["mer_walk_gap"]) != \
+            (walks_extend, walks_gap):
+        raise AssertionError(f"mer_walk calls by site {rec.counts} != "
+                             f"launches by stage {clock.stages}")
+    log(f"calls by row in assemble: {rec.counts}")
+
+    # ---- each kernel against its plain version, at this path's shapes;
+    # launches: the clean run's, split by row as the recorded run's ----
+    records = [hold_against_plain(row, rec.calls[row], ops, n, "assemble")
+               for row, n in rec.counts.items()]
+    del rec
+
+    # ---- the same path with the plain versions on the card ----
+    plain_plan = dataclasses.replace(plan, kernel_backend="torch")
+    ops.reset_launches()
+    p_out, p_clock = run_assemble(Assembler, Local, plain_plan, reads, ops,
+                                  "plain")
+    if any(ops.LAUNCHES.values()):
+        raise AssertionError(f"plain run launched kernels: {ops.LAUNCHES}")
+    assert_same_assembly(out, p_out, "assemble (kernels vs plain)")
+    log("plain path: identical " + ", ".join(ASSEMBLE_KEYS) + ", stats")
+    return records
+
+
+def phase_small(api, mgsim, ExtensionPolicy):
+    """Small inputs: both paths on the card equal the CPU runs."""
+    Assembler, AssemblyPlan, Local = api
     small_plan = AssemblyPlan(
         k_min=17, k_max=21, k_step=4, kmer_capacity=1 << 14, contig_cap=256,
-        max_contig_len=2048, policy=ExtensionPolicy(err_rate=0.05),
-        run_local_assembly=False)
+        max_contig_len=2048, walk_capacity=1 << 15, link_capacity=1 << 10,
+        max_scaffold_len=1 << 12, policy=ExtensionPolicy(err_rate=0.05))
     s_comm = mgsim.sample_community(41, num_genomes=2, genome_len=300,
                                     abundance_sigma=0.3)
     s_reads, _ = mgsim.generate_reads(42, s_comm, num_pairs=300,
                                       read_len=60, err_rate=0.003)
-    g = Assembler(small_plan, Local()).contig_rounds(s_reads)
-    c = Assembler(small_plan, Local("cpu")).contig_rounds(s_reads)
+    rounds_plan = dataclasses.replace(small_plan, run_local_assembly=False)
+    g = Assembler(rounds_plan, Local()).contig_rounds(s_reads)
+    c = Assembler(rounds_plan, Local("cpu")).contig_rounds(s_reads)
     for x, y, what in zip(g[:3], c[:3], ("contigs", "alive", "alignments")):
         assert_same(x, y, f"small input {what} (card vs CPU)")
     if g[3] != c[3]:
         raise AssertionError("small input stats differ (card vs CPU)")
-    log("small input: card run equals the CPU run")
+    log("small input, contig_rounds: card run equals the CPU run")
+    a_comm = mgsim.sample_community(32, num_genomes=3, genome_len=500,
+                                    abundance_sigma=0.3)
+    a_reads, _ = mgsim.generate_reads(33, a_comm, num_pairs=600,
+                                      read_len=60, err_rate=0.003)
+    g = Assembler(small_plan, Local()).assemble(a_reads)
+    c = Assembler(small_plan, Local("cpu")).assemble(a_reads)
+    assert_same_assembly(g, c, "small input assemble (card vs CPU)")
+    if not int(c["scaffold_seqs"].n_scaffolds):
+        raise AssertionError("small input assemble made no scaffold")
+    log("small input, assemble: card run equals the CPU run")
 
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--num-pairs", type=int, default=DEFAULT_PAIRS,
+                    help=f"read pairs to simulate (default {DEFAULT_PAIRS})")
+    ap.add_argument("--num-genomes", type=int, default=DEFAULT_GENOMES,
+                    help=f"genomes besides the strains (default "
+                         f"{DEFAULT_GENOMES})")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card visible; this script measures the "
+              "port on the card only", file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.api import Assembler, AssemblyPlan, Local
+    from repro_torch.core import dbg
+    from repro_torch.core.kmer_analysis import ExtensionPolicy
+    from repro_torch.data import mgsim
+    from repro_torch.kernels import build, ops
+    api = (Assembler, AssemblyPlan, Local)
+
+    card = card_line()
+    log(card)
+    log("torch", torch.__version__, "cuda", torch.version.cuda,
+        "device", torch.cuda.get_device_name(0))
+
+    t0 = time.perf_counter()
+    build.build_all()
+    rep = build.last_build()
+    log(f"kernel build: {time.perf_counter() - t0:.1f} s "
+        f"(nvcc, parallel: {rep.get('compiled')})")
+    for line in rep.get("log", "").splitlines():
+        if "registers" in line or "spill" in line:
+            log("  ptxas:", line.strip())
+
+    t0 = time.perf_counter()
+    comm = mgsim.sample_community(0, num_genomes=args.num_genomes,
+                                  genome_len=(10_000, 30_000),
+                                  strain_pairs=4)
+    reads, _ = mgsim.generate_reads(1, comm, num_pairs=args.num_pairs,
+                                    read_len=150, insert_mean=400,
+                                    insert_sd=30, err_rate=0.002)
+    content = sum(len(g) for g in comm.genomes)
+    log(f"data: {len(comm.genomes)} genomes, {content} bp, "
+        f"{reads.num_reads} reads x {reads.max_len} bp "
+        f"({reads.num_reads * reads.max_len / content:.1f}x), "
+        f"generated in {time.perf_counter() - t0:.1f} s on the host")
+    log("CUT: 20 genomes (+4 strains) and 75000 read pairs instead of 40 "
+        "and 120000: with those the first round's traversal finds 5893 "
+        "chains, over the contig_cap of 4096 that the reference's "
+        "single-shard (contig, mer) tag space allows")
+    if args.num_pairs != DEFAULT_PAIRS:
+        log(f"CUT: num_pairs {args.num_pairs} instead of {DEFAULT_PAIRS}")
+    if args.num_genomes != DEFAULT_GENOMES:
+        log(f"CUT: num_genomes {args.num_genomes} instead of "
+            f"{DEFAULT_GENOMES}")
+
+    records = phase_contig_rounds(api, ops, dbg, reads, comm)
+    records += phase_assemble(api, ops, reads, comm)
+    phase_small(api, mgsim, ExtensionPolicy)
+
+    log(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

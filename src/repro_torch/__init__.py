@@ -6,9 +6,8 @@ checked against the reference module of the same name.  It imports
 `torch`, never `jax`, and nothing of `repro`.
 
     from repro_torch.api import Assembler, AssemblyPlan, Local
-    plan = AssemblyPlan.from_dataset(reads, (17, 21, 4),
-                                     run_local_assembly=False)
-    contigs, alive, al, stats = Assembler(plan, Local()).contig_rounds(reads)
+    plan = AssemblyPlan.from_dataset(reads, (17, 21, 4))
+    out = Assembler(plan, Local()).assemble(reads)
 
 `Local()` runs on the CUDA card; `Local(device="cpu")` runs the plain
 PyTorch versions of the kernels on the CPU.

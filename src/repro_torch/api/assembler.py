@@ -1,16 +1,16 @@
 """`Assembler`: the front door to the pipeline (mirrors
-`repro.api.assembler`; Algorithm 1 only).
+`repro.api.assembler`; in-memory, single device).
 
-    plan = AssemblyPlan.from_dataset(reads, (17, 21, 4),
-                                     run_local_assembly=False)
+    plan = AssemblyPlan.from_dataset(reads, (17, 21, 4))
+    out = Assembler(plan, Local()).assemble(reads)
     contigs, alive, al, stats = Assembler(plan, Local()).contig_rounds(reads)
 
 Algorithm 1 (iterative contig generation): per k of the plan, k-mer
 analysis with the previous round's contig k-mers as pseudo-counted
-evidence (§II-H), dBG traversal, bubble merging and pruning, then read
-alignment against the new contigs.  Local assembly (`extend`) and the
-scaffolding of `assemble` need the mer_walk kernel and are not ported yet;
-a plan asking for them raises.
+evidence (§II-H), dBG traversal, bubble merging and pruning, read
+alignment against the new contigs, and local assembly of the contig ends
+(§II-G) when the plan asks for it.  `assemble` adds Algorithm 3: a fresh
+alignment, link witnesses, scaffolding and gap closing (§III).
 """
 from __future__ import annotations
 
@@ -20,7 +20,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core import bubble, dbg, kmer_analysis, pruning
+from repro_torch.core import bubble, dbg, gap_closing, kmer_analysis, \
+    pruning, scaffolding
 
 from .context import ExecutionContext, Local
 from .plan import AssemblyPlan
@@ -65,6 +66,23 @@ def contig_stage(kset, k: int, plan: AssemblyPlan):
     return contigs, prn.alive, trav, bub, prn
 
 
+#: Ordered stage labels of the staged-assembly event protocol: every event
+#: the `*_iter` generators yield is `(stage, info)` with `stage` from here.
+STAGES = ("analyze", "contig_rounds", "align", "scaffold")
+
+
+def aligned_frac(n_aligned: int, n_reads: int) -> float:
+    """The reference's float32 mean of the aligned-read column: XLA turns
+    its division by the constant row count into a product with the
+    float32 reciprocal, which can differ from a division by one ulp."""
+    return float(np.float32(n_aligned) * (np.float32(1)
+                                          / np.float32(n_reads)))
+
+
+def _live_bases(contigs, alive) -> int:
+    return int(torch.where(alive, contigs.lengths, 0).sum())
+
+
 def drive(gen, hook=None):
     """Drain a staged generator; forward each (stage, info) event to
     `hook`, which may raise to abort at that boundary.  Returns the
@@ -89,14 +107,14 @@ class Assembler:
     def _round(self, k: int, prev):
         """One contig-generation iteration: (contigs, alive, al, stats)."""
         plan, ctx = self.plan, self.ctx
-        if plan.run_local_assembly:
-            raise NotImplementedError(
-                "run_local_assembly=True needs Local.extend and the "
-                "mer_walk kernel, not ported yet (ROADMAP.md Queue 1); "
-                "plan with run_local_assembly=False")
         kset, kovf = ctx.kmer_set(k, prev)
         contigs, alive, trav, bub, prn = contig_stage(kset, k, plan)
         al = ctx.align(contigs, alive, k)
+        ext_bases = 0
+        if plan.run_local_assembly:
+            old_total = _live_bases(contigs, alive)
+            contigs = ctx.extend(contigs, alive, al, k)
+            ext_bases = _live_bases(contigs, alive) - old_total
         n_aligned = int((al.contig[:, 0] >= 0).sum())
         stats = IterationStats(
             k=k,
@@ -105,10 +123,8 @@ class Assembler:
             n_bubbles=int(bub.merged_away.sum()),
             n_hair=int(bub.hair.sum()),
             n_pruned=int(prn.pruned),
-            # float32 mean of a bool column, as the reference
-            aligned_frac=float(np.float32(n_aligned)
-                               / np.float32(al.contig.shape[0])),
-            extended_bases=0,
+            aligned_frac=aligned_frac(n_aligned, al.contig.shape[0]),
+            extended_bases=ext_bases,
             overflow=bool(kovf.get("table")) or bool(trav.overflow),
             route_overflow=int(kovf.get("route", 0)),
         )
@@ -132,8 +148,63 @@ class Assembler:
         """Algorithm 1: iterate k over the plan's schedule."""
         return drive(self.contig_rounds_iter(reads, prev=prev), hook)
 
+    # ---- Algorithm 1 + Algorithm 3 ----
+
+    def assemble_iter(self, reads, hmm_hit=None):
+        """Generator twin of `assemble`: yields (stage, info) events at
+        every stage boundary (between contig rounds, after the final
+        alignment, after scaffolding) and returns the result dict."""
+        plan, ctx = self.plan, self.ctx
+        contigs, alive, _, stats = yield from self.contig_rounds_iter(reads)
+        # fresh alignment against the final contigs (Alg. 3 line 3)
+        k_last = plan.ks()[-1]
+        al = ctx.align(contigs, alive, k_last)
+        yield "align", {"k": k_last}
+        ea, eb, gap, valid, is_splint = ctx.link_candidates(al, contigs,
+                                                           alive)
+        links = scaffolding.links_from_candidates(
+            ea, eb, gap, valid, is_splint, alive,
+            capacity=plan.link_capacity, min_support=plan.min_link_support,
+        )
+        if hmm_hit is not None:
+            hmm_hit = hmm_hit.to(alive.device)
+        scaffs, links, suspended, comp = scaffolding.scaffold_from_links(
+            links, contigs, alive, float(reads.insert_size),
+            max_members=plan.max_members, hmm_hit=hmm_hit,
+        )
+        yield "scaffold", {"n_links": int(links.valid.sum())}
+        # gap closing walks consume the whole read set
+        dev_reads = reads.to(contigs.bases.device)
+        seqs = gap_closing.close_and_render(
+            scaffs, contigs, dev_reads, al.contig[:, 0][: reads.num_reads],
+            seed_len=min(k_last, 25),
+            mer_sizes=plan.ladder(k_last),
+            walk_capacity=plan.walk_capacity,
+            max_scaffold_len=plan.max_scaffold_len,
+            backend=plan.kernel_backend,
+        )
+        return {
+            "contigs": contigs,
+            "alive": alive,
+            "alignments": al,
+            "scaffolds": scaffs,
+            "scaffold_seqs": seqs,
+            "links": links,
+            "suspended": suspended,
+            "components": comp,
+            "stats": stats,
+            "plan": plan,
+            "overflow": ctx.overflow(),
+        }
+
     def assemble(self, reads, hmm_hit=None, *, hook=None) -> dict:
-        raise NotImplementedError(
-            "Assembler.assemble (local assembly, scaffolding, gap closing) "
-            "needs the mer_walk kernel, not ported yet: ROADMAP.md Queue 1; "
-            "contig_rounds runs Algorithm 1")
+        """Full pipeline (Algorithms 1 and 3): the reference's result dict
+        (contigs, alive, alignments, scaffolds, scaffold_seqs, links,
+        suspended, components, stats, plan, overflow).
+
+        `hmm_hit`: optional [contig_cap] bool, contigs whose ends stay
+        extendable under competing links (§III-C); the profile-HMM scorer
+        that computes it is not ported.  `hook(stage, info)` runs at every
+        stage boundary and may raise to abort there (see `drive`).
+        """
+        return drive(self.assemble_iter(reads, hmm_hit), hook)

@@ -1,20 +1,22 @@
 """Execution contexts: where the read-proportional stages run (mirrors
 `repro.api.context`; `Local` only).
 
-`Assembler` drives Algorithm 1 against the stage protocol below.  `Local`
-runs every stage on one device: the CUDA card unless the caller asks for
-the CPU.  It never falls back: without a visible card and without
-`device="cpu"` it raises.
+`Assembler` drives Algorithm 1 + Algorithm 3 against the stage protocol
+below.  `Local` runs every stage on one device: the CUDA card unless the
+caller asks for the CPU.  It never falls back: without a visible card and
+without `device="cpu"` it raises.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core import alignment, kmer_analysis
+from repro_torch.core import alignment, kmer_analysis, local_assembly, \
+    scaffolding
 
 
 class ExecutionContext:
-    """Stage protocol (`prepare`, `kmer_set`, `align`, `extend`)."""
+    """Stage protocol (`prepare`, `kmer_set`, `align`, `extend`,
+    `link_candidates`)."""
 
     def prepare(self, reads, plan) -> None:
         """Bind the dataset + plan; called once per run."""
@@ -31,6 +33,10 @@ class ExecutionContext:
 
     def extend(self, contigs, alive, al, k: int):
         """Local-assembly extension of contig ends (§II-G)."""
+        raise NotImplementedError
+
+    def link_candidates(self, al, contigs, alive):
+        """Per-read splint/span link witnesses (flat candidate arrays)."""
         raise NotImplementedError
 
     def overflow(self) -> dict:
@@ -104,6 +110,14 @@ class Local(ExecutionContext):
             backend=self.plan.kernel_backend)
 
     def extend(self, contigs, alive, al, k: int):
-        raise NotImplementedError(
-            "Local.extend (local assembly) needs the mer_walk kernel, not "
-            "ported yet: ROADMAP.md Queue 1, local assembly item")
+        extended, _walk = local_assembly.extend_contigs(
+            self.reads, contigs, alive, al.contig[:, 0],
+            mer_sizes=self.plan.ladder(k),
+            capacity=self.plan.walk_capacity,
+            max_ext=self.plan.max_ext,
+            backend=self.plan.kernel_backend)
+        return extended
+
+    def link_candidates(self, al, contigs, alive):
+        clens = torch.where(alive, contigs.lengths, 0)
+        return scaffolding.candidate_links(al, self.reads, clens)

@@ -13,10 +13,7 @@ Differences from the reference, all in what the port does not run yet:
   * `kernel_backend` is None (kernels on the card, plain versions on the
     CPU) or "torch" (plain versions everywhere), see `kernels.ops`;
   * `num_shards` must be 1 and `batch_reads` None: the Mesh and streaming
-    contexts are not ported;
-  * the walk-ladder and (contig, mer) tag-space checks apply only when
-    `run_local_assembly` is set, since only the local-assembly walk uses
-    the ladder and the tags.
+    contexts are not ported.
 """
 from __future__ import annotations
 
@@ -77,7 +74,6 @@ def validate_assembly_params(
     max_ext: int,
     walk_ladder_step: int,
     seed_stride: int,
-    run_local_assembly: bool = True,
     where: str = "AssemblyPlan",
 ) -> None:
     """Reject invalid parameters with actionable errors (fail fast)."""
@@ -99,8 +95,6 @@ def validate_assembly_params(
             raise PlanError(
                 f"{where}: k={k} outside the dual-lane packing range 3..31"
             )
-        if not run_local_assembly:
-            continue
         lo, mid, hi = _ladder(k, walk_ladder_step)
         if not lo < mid < hi:
             raise PlanError(
@@ -109,6 +103,9 @@ def validate_assembly_params(
                 f"below and above k (11 < k < 27 with "
                 f"walk_ladder_step={walk_ladder_step})"
             )
+        # the (contig, mer) walk tables embed the contig id in the spare
+        # high bits of the dual-lane key (kmer.embed_tag); the ladder's
+        # top rung fixes how many bits are spare
         tag_bits = min(16, 62 - 2 * hi)
         if contig_cap > (1 << tag_bits):
             raise PlanError(
@@ -195,8 +192,7 @@ class AssemblyPlan:
             max_scaffold_len=self.max_scaffold_len,
             max_members=self.max_members, max_ext=self.max_ext,
             walk_ladder_step=self.walk_ladder_step,
-            seed_stride=self.seed_stride,
-            run_local_assembly=self.run_local_assembly, where="AssemblyPlan",
+            seed_stride=self.seed_stride, where="AssemblyPlan",
         )
         if self.kernel_backend not in BACKENDS:
             raise PlanError(

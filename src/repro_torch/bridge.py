@@ -8,8 +8,9 @@ tests) turns a reference record into numpy arrays and hands it over:
     out = bridge.to_numpy(port_record)         # nested dict of arrays
 
 so a stage of the port can start from the reference's output of the stage
-before it.  uint32 lanes become int32 tensors with the same bits
-(`core.types`) and come back as uint32 arrays.
+before it (k-mer sets, contigs, seed indexes, walk tables, links,
+scaffolds, scaffold sequences).  uint32 lanes become int32 tensors with
+the same bits (`core.types`) and come back as uint32 arrays.
 """
 from __future__ import annotations
 
@@ -20,10 +21,12 @@ from repro_torch.api.plan import AssemblyPlan
 from repro_torch.core.alignment import SeedIndex
 from repro_torch.core.dht import HashTable
 from repro_torch.core.kmer_analysis import ExtensionPolicy
+from repro_torch.core.local_assembly import WalkTables
 
 # Fields that hold uint32 lanes in the reference.
 LANE_FIELDS = frozenset({"hi", "lo", "hash", "slot_hi", "slot_lo"})
-_NESTED = {(SeedIndex, "table"): HashTable}
+# Fields that hold a record (or a tuple of records, one per walk rung).
+_NESTED = {(SeedIndex, "table"): HashTable, (WalkTables, "tables"): HashTable}
 
 
 def tensor(a, device=None) -> torch.Tensor:
@@ -38,15 +41,21 @@ def to_torch(record, cls, device=None):
     """A port record of NamedTuple type `cls` from any object with the same
     field names whose values are arrays (or Python ints, kept as they are).
     """
+    def one(v, nested):
+        if nested is not None:
+            return to_torch(v, nested, device)
+        if isinstance(v, (bool, int, float)):
+            return v
+        return tensor(v, device)
+
     vals = {}
     for name in cls._fields:
         v = getattr(record, name)
-        if (cls, name) in _NESTED:
-            vals[name] = to_torch(v, _NESTED[cls, name], device)
-        elif isinstance(v, (bool, int, float)):
-            vals[name] = v
+        nested = _NESTED.get((cls, name))
+        if isinstance(v, (tuple, list)) and not hasattr(v, "_fields"):
+            vals[name] = tuple(one(x, nested) for x in v)
         else:
-            vals[name] = tensor(v, device)
+            vals[name] = one(v, nested)
     return cls(**vals)
 
 
@@ -60,6 +69,8 @@ def to_numpy(obj, name: str = ""):
         return {f: to_numpy(getattr(obj, f), f) for f in obj._fields}
     if isinstance(obj, dict):
         return {k: to_numpy(v, k) for k, v in obj.items()}
+    if isinstance(obj, (tuple, list)):
+        return [to_numpy(v, name) for v in obj]
     return obj
 
 

@@ -139,6 +139,40 @@ def kmer_hash(hi, lo):
     return narrow(_hash64(widen(hi), widen(lo)))
 
 
+def _pack64(bases, k: int):
+    """Pack a [..., k] base window into widened (hi, lo) lanes."""
+    hi = torch.zeros(bases.shape[:-1], dtype=torch.int64, device=bases.device)
+    lo = torch.zeros_like(hi)
+    for i in range(k):
+        hi, lo = _append64(hi, lo, bases[..., i], k)
+    return hi, lo
+
+
+def pack_window(bases, *, k: int):
+    """Pack a [..., k] uint8 base window into a dual-lane code."""
+    return tuple(map(narrow, _pack64(bases, k)))
+
+
+def _embed_tag64(hi, lo, tag, k: int, tag_bits: int):
+    """Tag bits above the 2k code bits, on widened lanes."""
+    t = widen(tag.to(torch.int32)) & ((1 << tag_bits) - 1)
+    shift = 2 * k
+    if shift >= 32:
+        return hi | _shl(t, shift - 32), lo
+    return hi | (t >> (32 - shift)), lo | _shl(t, shift)
+
+
+def embed_tag(hi, lo, tag, *, k: int, tag_bits: int):
+    """Pack an integer tag above the 2k code bits (for (contig, mer) keys).
+
+    Requires 2k + tag_bits <= 62 so the tagged key still fits the dual-lane
+    convention (hi's top two bits stay clear for the EMPTY sentinel).
+    """
+    assert 2 * k + tag_bits <= 62, f"tag does not fit: 2*{k}+{tag_bits} > 62"
+    return tuple(map(narrow, _embed_tag64(widen(hi), widen(lo), tag, k,
+                                          tag_bits)))
+
+
 def decode(hi, lo, *, k: int):
     """Unpack a dual-lane code into [..., k] uint8 bases."""
     whi, wlo = widen(hi), widen(lo)

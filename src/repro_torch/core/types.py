@@ -56,6 +56,16 @@ def sort_key(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
     return (widen(hi) - 0x80000000) * (1 << 32) + widen(lo)
 
 
+def drop_rows(idx: torch.Tensor, n: int):
+    """(keep, row): where a JAX `.at[idx]` scatter with mode="drop" writes
+    into an n-row array.  JAX wraps a negative index once (-1 is row n-1)
+    and then drops what lies outside [0, n); callers index with row[keep].
+    """
+    row = idx.to(torch.int64)
+    row = torch.where(row < 0, row + n, row)
+    return (row >= 0) & (row < n), row
+
+
 class ReadSet(NamedTuple):
     """A batch of (possibly paired) reads, dense [R, L] layout.
 

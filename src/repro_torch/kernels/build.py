@@ -51,6 +51,10 @@ SIGNATURES = {
         "seed_probe_launch": [_P, _P, _L, _L, _P, _P, _P, _P, _L,
                               _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
     },
+    "mer_walk": {
+        "mer_walk_launch": [_P] * 6 + [_L, _P, _P, _I, _L] + [_I] * 5
+        + [_P] * 5 + [_P],
+    },
 }
 
 _lock = threading.Lock()

@@ -14,14 +14,17 @@ since the last `reset_launches()`: a plain-version call does not count.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.core import kmer as _kmer
 
 from . import build, ref
-from .ref import KmerLanes  # re-export  # noqa: F401
+from .ref import KmerLanes, MerWalkOut  # re-export  # noqa: F401
 
-KERNELS = ("kmer_extract", "dht_lookup", "dht_insert", "seed_probe")
+KERNELS = ("kmer_extract", "dht_lookup", "dht_insert", "seed_probe",
+           "mer_walk")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 
@@ -218,3 +221,102 @@ def seed_probe(bases, lengths, slot_hi, slot_lo, used, max_probe,
         _ptr(out_o), _stream(dev))
     _launched("seed_probe", lib, err)
     return out_c, out_s, out_o
+
+
+def mer_walk(wt, start_hi, start_lo, contig, active, *, mer_sizes: tuple,
+             tag_bits: int, max_ext: int, min_votes: int = 1,
+             dominance: int = 4, target_hi=None, target_lo=None,
+             seed_len: int = 0, backend=None) -> MerWalkOut:
+    """Dynamic-mer ladder walk for E walkers (§II-G / §III-D).
+
+    The one walk path of the port: contig extension
+    (`local_assembly.extend_with_tables`) and gap closing
+    (`gap_closing.close_and_render_with_tables`).  `wt` is a
+    `local_assembly.WalkTables` (one `dht.HashTable` and a right and a left
+    [cap, 4] int32 histogram per rung, one rung per entry of `mer_sizes`);
+    its per-rung arrays go to the kernel as they are, never stacked.
+
+    start_hi/lo: [E] lanes, the 31-base suffix of each walker's contig end
+    oriented so the walk appends rightward; contig: [E] int32 (the table
+    tag); active: [E] bool.  Pass `target_hi/lo` with seed_len > 0 for the
+    gap-closing variant: a walker whose buffer suffix becomes its target
+    seed stops with status HIT and records `hit_pos`.
+    """
+    n = len(mer_sizes)
+    if len(wt.tables) != n:
+        raise ValueError(f"mer_walk: {len(wt.tables)} tables for the "
+                         f"{n}-rung ladder {tuple(mer_sizes)}")
+    cap = wt.tables[0].capacity
+    if any(t.capacity != cap for t in wt.tables):
+        raise ValueError("mer_walk: rung capacities differ")
+    if target_hi is None:
+        seed_len = 0
+        target_hi = torch.zeros_like(start_hi)
+        target_lo = torch.zeros_like(start_lo)
+    elif seed_len <= 0:
+        raise ValueError("mer_walk: a target walk needs seed_len > 0")
+    keys_hi = tuple(t.slot_hi for t in wt.tables)
+    keys_lo = tuple(t.slot_lo for t in wt.tables)
+    used = tuple(t.used for t in wt.tables)
+    kw = dict(mer_sizes=tuple(mer_sizes), tag_bits=tag_bits, max_ext=max_ext,
+              min_votes=min_votes, dominance=dominance, seed_len=seed_len)
+    if not _use_kernel(backend, start_hi):
+        return ref.mer_walk_ref(
+            start_hi, start_lo, contig, active, target_hi, target_lo,
+            keys_hi, keys_lo, used, tuple(t.max_probe for t in wt.tables),
+            tuple(wt.right_hist), tuple(wt.left_hist), **kw)
+    if not 1 <= n <= 3 or not all(1 <= m <= 31 for m in mer_sizes):
+        raise ValueError(f"mer_walk: kernel takes 1..3 rungs of mers "
+                         f"1..31, got {tuple(mer_sizes)}")
+    if not 0 <= tag_bits <= 16 or 2 * max(mer_sizes) + tag_bits > 62:
+        raise ValueError(f"mer_walk: tag_bits={tag_bits} does not fit "
+                         f"above {max(mer_sizes)}-mers in 62 bits")
+    if max_ext < 1 or seed_len > 31:
+        raise ValueError(f"mer_walk: max_ext={max_ext}, seed_len="
+                         f"{seed_len} (need max_ext >= 1, seed_len <= 31)")
+    if not _is_pow2(cap):
+        raise ValueError(f"table capacity {cap} is not a power of two")
+    dev = start_hi.device
+    E = start_hi.shape[0]
+    for name, t, dt in (("start_hi", start_hi, torch.int32),
+                        ("start_lo", start_lo, torch.int32),
+                        ("contig", contig, torch.int32),
+                        ("active", active, torch.bool),
+                        ("target_hi", target_hi, torch.int32),
+                        ("target_lo", target_lo, torch.int32)):
+        _check(name, t, dt, dev)
+        if t.shape != (E,):
+            raise ValueError(f"mer_walk: {name} has shape {tuple(t.shape)}, "
+                             f"walkers are [{E}]")
+    ptrs, keep = [], []  # keep: the max_probe tensors the launch reads
+    for r, t in enumerate(wt.tables):
+        mp = torch.as_tensor(t.max_probe, dtype=torch.int32,
+                             device=dev).reshape(1)
+        keep.append(mp)
+        for name, a, dt in (("slot_hi", t.slot_hi, torch.int32),
+                            ("slot_lo", t.slot_lo, torch.int32),
+                            ("used", t.used, torch.bool),
+                            ("max_probe", mp, torch.int32),
+                            ("right_hist", wt.right_hist[r], torch.int32),
+                            ("left_hist", wt.left_hist[r], torch.int32)):
+            _check(f"rung {r} {name}", a, dt, dev)
+            ptrs.append(_ptr(a))
+        for h in (wt.right_hist[r], wt.left_hist[r]):
+            if h.shape != (cap, 4) or _ptr(h) % 16:
+                raise ValueError(f"mer_walk: rung {r} histogram must be a "
+                                 f"16-byte aligned [{cap}, 4] tensor")
+    out = MerWalkOut(
+        torch.full((E, max_ext), 4, dtype=torch.uint8, device=dev),
+        torch.empty((E,), dtype=torch.int32, device=dev),
+        torch.empty((E,), dtype=torch.int32, device=dev),
+        torch.empty((E,), dtype=torch.bool, device=dev),
+        torch.empty((E,), dtype=torch.int32, device=dev))
+    lib = build.library("mer_walk")
+    err = lib.mer_walk_launch(
+        _ptr(start_hi), _ptr(start_lo), _ptr(contig), _ptr(active),
+        _ptr(target_hi), _ptr(target_lo), E,
+        (ctypes.c_void_p * len(ptrs))(*ptrs),
+        (ctypes.c_int * n)(*mer_sizes), n, cap, tag_bits, max_ext,
+        min_votes, dominance, seed_len, *map(_ptr, out), _stream(dev))
+    _launched("mer_walk", lib, err)
+    return out

@@ -1,12 +1,12 @@
 """Plain PyTorch versions of the kernels (mirrors `repro.kernels.ref`).
 
 Each `*_ref` has its kernel's interface and the reference's semantics op
-for op: `kmer_extract_ref`, `dht_lookup_ref`, `dht_insert_ref` and
-`seed_probe_ref` follow `repro/kernels/ref.py` and the jnp table rounds of
-`repro/core/dht.py` (`insert_jnp`, `lookup_jnp`).  `kernels.ops` serves them
-for CPU tensors, and `chip_smoke.py` holds each CUDA kernel against them on
-the card.  Lanes are int32 bit patterns, widened to int64 for arithmetic
-(`core.types`).
+for op: `kmer_extract_ref`, `dht_lookup_ref`, `dht_insert_ref`,
+`seed_probe_ref` and `mer_walk_ref` follow `repro/kernels/ref.py` and the
+jnp table rounds of `repro/core/dht.py` (`insert_jnp`, `lookup_jnp`).
+`kernels.ops` serves them for CPU tensors, and `chip_smoke.py` holds each
+CUDA kernel against them on the card.  Lanes are int32 bit patterns,
+widened to int64 for arithmetic (`core.types`).
 """
 from __future__ import annotations
 
@@ -16,6 +16,11 @@ import torch
 
 from repro_torch.core import kmer
 from repro_torch.core.types import INVALID_BASE, narrow, widen
+
+# walk status codes (HIT: a gap walk reached its target seed) and the width
+# of the walk's rolling suffix buffer, as `repro/kernels/mer_walk.py`
+ACTIVE, DEADEND, FORK, DONE, HIT = 0, 1, 2, 3, 4
+BUF_K = 31
 
 # Rows of the plain extraction per chunk: bounds its int64 temporaries to
 # ~2**24 windows, whatever the batch.  Results do not depend on it.
@@ -70,25 +75,23 @@ def kmer_extract_ref(bases, lengths, *, k: int) -> KmerLanes:
     return out
 
 
-def dht_lookup_ref(slot_hi, slot_lo, used, max_probe, hi, lo, valid):
-    """Plain version of dht_lookup: `repro/core/dht.py:lookup_jnp`.
+def _probe(slot_hi, slot_lo, used, max_probe, fhi, flo, live):
+    """Probe chains of the flat queries at indices `live`: (slots, probes).
 
     Linear probe from hash & (cap-1); a query stops at its key, at an
-    unused slot, or after max_probe + 2 steps.  Returns int32 slots shaped
-    like `hi`, -1 where absent or invalid.  Only still-open queries are
-    carried from step to step; results are those of the full-width loop.
+    unused slot, or after max_probe + 2 steps.  `probes` counts the slots
+    examined.  Only still-open queries are carried from step to step;
+    results are those of the full-width loop.
     """
     cap = slot_hi.shape[0]
-    shape = hi.shape
-    fhi, flo = hi.reshape(-1), lo.reshape(-1)
     result = torch.full((fhi.shape[0],), -1, dtype=torch.int32,
-                        device=hi.device)
-    live = valid.reshape(-1).nonzero().squeeze(1)
+                        device=fhi.device)
     qhi, qlo = fhi[live], flo[live]
     attempt = kmer._hash64(widen(qhi), widen(qlo)) & (cap - 1)
     bound = int(max_probe) + 1
-    i = 0
+    i = probes = 0
     while i <= bound and live.numel():
+        probes += live.numel()
         u = used[attempt]
         match = u & (slot_hi[attempt] == qhi) & (slot_lo[attempt] == qlo)
         result[live[match]] = attempt[match].to(torch.int32)
@@ -96,7 +99,18 @@ def dht_lookup_ref(slot_hi, slot_lo, used, max_probe, hi, lo, valid):
         live, qhi, qlo = live[go], qhi[go], qlo[go]
         attempt = (attempt[go] + 1) & (cap - 1)
         i += 1
-    return result.reshape(shape)
+    return result, probes
+
+
+def dht_lookup_ref(slot_hi, slot_lo, used, max_probe, hi, lo, valid):
+    """Plain version of dht_lookup: `repro/core/dht.py:lookup_jnp`.
+
+    Returns int32 slots shaped like `hi`, -1 where absent or invalid.
+    """
+    live = valid.reshape(-1).nonzero().squeeze(1)
+    slots, _ = _probe(slot_hi, slot_lo, used, max_probe, hi.reshape(-1),
+                      lo.reshape(-1), live)
+    return slots.reshape(hi.shape)
 
 
 def dht_insert_ref(slot_hi, slot_lo, used, max_probe, hi, lo, valid):
@@ -147,6 +161,132 @@ def dht_insert_ref(slot_hi, slot_lo, used, max_probe, hi, lo, valid):
     if probes.numel():
         mp = torch.maximum(mp, probes.max().to(torch.int32))
     return slot_hi, slot_lo, used, mp, slots
+
+
+class MerWalkOut(NamedTuple):
+    """Walk outputs for E walkers.
+
+    `hit`/`hit_pos` are all-False/-1 unless a target mer was supplied
+    (seed_len > 0); `hit_pos` is the number of accepted bases after which
+    the target seed first appeared as the buffer suffix.
+    """
+
+    ext_bases: torch.Tensor  # [E, max_ext] uint8 accepted bases (4 pad)
+    ext_len: torch.Tensor    # [E] int32
+    status: torch.Tensor     # [E] int32 final status code
+    hit: torch.Tensor        # [E] bool target seed reached
+    hit_pos: torch.Tensor    # [E] int32 accepted-base count at the hit (-1)
+
+
+def _choose(hist, min_votes: int, dominance: int):
+    """(base, kind) of the §II-G vote; kind 0 accept, 1 dead end, 2 fork.
+    The base is the first maximal one."""
+    c1 = hist.max(dim=-1).values
+    b1 = hist.argmax(dim=-1)
+    viable = (hist >= min_votes).sum(dim=-1)
+    second = hist.sum(dim=-1) - c1
+    uncontested = (viable == 1) & (c1 >= min_votes)
+    dominated = ((viable > 1) & (c1 >= dominance * second.clamp(min=1))
+                 & (c1 >= min_votes + 1))
+    accept = uncontested | dominated
+    kind = torch.where(accept, 0, torch.where(viable == 0, 1, 2))
+    return b1, kind
+
+
+def mer_walk_ref(start_hi, start_lo, contig, active, target_hi, target_lo,
+                 keys_hi, keys_lo, used, max_probe, right_hist, left_hist, *,
+                 mer_sizes: tuple, tag_bits: int, max_ext: int,
+                 min_votes: int = 1, dominance: int = 4, seed_len: int = 0,
+                 counts: dict | None = None) -> MerWalkOut:
+    """Plain version of mer_walk: `repro/kernels/ref.py:mer_walk_ref`.
+
+    Per step, every ACTIVE walker takes the canonical suffix mer of its
+    current rung, tags it with its contig id, probes that rung's table,
+    votes over the extension histogram (the left one, reversed, when the
+    canonical mer is the reverse complement), then accepts a base, moves
+    up a rung on a fork or down on a dead end, or stops.  With
+    seed_len > 0 a walker whose buffer suffix becomes its target seed
+    stops with status HIT.  At most max_ext steps.
+
+    The table arguments are per-rung sequences ([cap] lanes, [cap, 4]
+    histograms), not stacked.  Only the walker's current rung is probed
+    (probes have no side effects, so the reference's probes of the other
+    rungs change nothing) and only ACTIVE walkers are carried from step
+    to step.  `counts`, if given, receives the walker steps taken and the
+    table slots examined ('steps', 'probes').
+    """
+    E = start_hi.shape[0]
+    dev = start_hi.device
+    n_rungs = len(mer_sizes)
+    buf_hi, buf_lo = widen(start_hi), widen(start_lo)
+    t_hi, t_lo = widen(target_hi), widen(target_lo)
+    rung = torch.full((E,), n_rungs // 2, dtype=torch.int64, device=dev)
+    last_shift = torch.zeros((E,), dtype=torch.int64, device=dev)
+    status = torch.where(active, ACTIVE, DONE).to(torch.int32)
+    out = torch.full((E, max_ext), INVALID_BASE, dtype=torch.uint8,
+                     device=dev)
+    out_len = torch.zeros((E,), dtype=torch.int32, device=dev)
+    hit = torch.zeros((E,), dtype=torch.bool, device=dev)
+    hit_pos = torch.full((E,), -1, dtype=torch.int32, device=dev)
+    live = active.nonzero().squeeze(1)
+    steps = probes = 0
+    for _ in range(max_ext):
+        if not live.numel():
+            break
+        steps += live.numel()
+        bh, bl, rg = buf_hi[live], buf_lo[live], rung[live]
+        hist = torch.zeros((live.numel(), 4), dtype=torch.int32, device=dev)
+        for r, m in enumerate(mer_sizes):
+            sel = (rg == r).nonzero().squeeze(1)
+            if not sel.numel():
+                continue
+            mask_lo, mask_hi = kmer._masks(m)
+            chi, clo, flip = kmer._canonical64(bh[sel] & mask_hi,
+                                               bl[sel] & mask_lo, m)
+            thi, tlo = kmer._embed_tag64(chi, clo, contig[live[sel]], m,
+                                         tag_bits)
+            every = torch.arange(sel.numel(), device=dev)
+            slots, n = _probe(keys_hi[r], keys_lo[r], used[r], max_probe[r],
+                              narrow(thi), narrow(tlo), every)
+            probes += n
+            s = slots.clamp(min=0).to(torch.int64)
+            h = torch.where(flip[:, None], left_hist[r][s].flip(-1),
+                            right_hist[r][s])
+            hist[sel] = torch.where((slots >= 0)[:, None], h, 0)
+        base, kind = _choose(hist, min_votes, dominance)
+        ls = last_shift[live]
+        stop_fork = (kind == 2) & ((rg == n_rungs - 1) | (ls == -1))
+        stop_dead = (kind == 1) & ((rg == 0) | (ls == 1))
+        up = (kind == 2) & ~stop_fork
+        down = (kind == 1) & ~stop_dead
+        accept = kind == 0
+        rung[live] = rg + up.to(torch.int64) - down.to(torch.int64)
+        last_shift[live] = torch.where(up, 1, torch.where(
+            down, -1, torch.where(accept, 0, ls)))
+        nh, nl = kmer._append64(bh, bl, base, BUF_K)
+        bh = torch.where(accept, nh, bh)
+        bl = torch.where(accept, nl, bl)
+        buf_hi[live], buf_lo[live] = bh, bl
+        ol = out_len[live]
+        out[live[accept], ol[accept].to(torch.int64)] = \
+            base[accept].to(torch.uint8)
+        ol = ol + accept.to(torch.int32)
+        out_len[live] = ol
+        st = torch.where(stop_fork, FORK,
+                         torch.where(stop_dead, DEADEND, status[live]))
+        if seed_len > 0:
+            mask_lo, mask_hi = kmer._masks(seed_len)
+            match = (accept & ((bh & mask_hi) == t_hi[live])
+                     & ((bl & mask_lo) == t_lo[live]) & ~hit[live])
+            hit_pos[live] = torch.where(match, ol, hit_pos[live])
+            hit[live] = hit[live] | match
+            st = torch.where(match, HIT, st)
+        status[live] = st.to(torch.int32)
+        live = live[st == ACTIVE]
+    if counts is not None:
+        counts["steps"] = counts.get("steps", 0) + steps
+        counts["probes"] = counts.get("probes", 0) + probes
+    return MerWalkOut(out, out_len, status, hit, hit_pos)
 
 
 def seed_probe_ref(bases, lengths, slot_hi, slot_lo, used, max_probe,

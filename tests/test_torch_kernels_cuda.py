@@ -3,8 +3,8 @@
 Each hand-written kernel (`repro_torch/kernels/csrc/`) is held to its plain
 PyTorch version (`repro_torch.kernels.ref`, itself held to the JAX
 reference by the other test_torch_* files) at small shapes with the edge
-cases of those files, plus the whole `contig_rounds` on the card against
-the CPU run.  Skipped where no CUDA card is visible; on the card:
+cases of those files, plus the whole `contig_rounds` and `assemble` on the
+card against the CPU run.  Skipped where no CUDA card is visible; on the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
@@ -15,8 +15,9 @@ import pytest
 import torch
 
 from repro_torch.api import Assembler, AssemblyPlan, Local
-from repro_torch.core import dht
+from repro_torch.core import dht, kmer, local_assembly
 from repro_torch.core.kmer_analysis import ExtensionPolicy
+from repro_torch.core.types import ReadSet
 from repro_torch.data import mgsim
 from repro_torch.kernels import ops
 
@@ -135,10 +136,92 @@ def test_contig_rounds_on_card_equals_cpu(dev):
                                     err_rate=0.003)
     ops.reset_launches()
     got = Assembler(plan, Local(dev)).contig_rounds(reads)
-    assert all(ops.LAUNCHES[n] > 0 for n in ops.KERNELS), ops.LAUNCHES
+    # without local assembly, every kernel but the walk runs
+    assert all(ops.LAUNCHES[n] > 0 for n in ops.KERNELS
+               if n != "mer_walk"), ops.LAUNCHES
     want = Assembler(plan, Local("cpu")).contig_rounds(reads)
     for g, w in zip(got[:3], want[:3]):
         g = g if isinstance(g, tuple) else (g,)
         w = w if isinstance(w, tuple) else (w,)
         _same([x.cpu() for x in g], list(w))
     assert got[3] == want[3]
+
+
+def _walk_fixture(rng, dev, mer_sizes, capacity, E, seed_len,
+                  num_reads=200, L=60):
+    """Walk tables from random reads (plain build); walkers on read windows
+    (half) and random buffers (half); each walker's target is the seed a
+    few bases further along its read (random for the others)."""
+    K = local_assembly.BUF_K
+    bases = rng.integers(0, 4, size=(num_reads, L)).astype(np.uint8)
+    bases[rng.random((num_reads, L)) < 0.01] = 4
+    lengths = rng.integers(K, L + 1, size=num_reads).astype(np.int32)
+    rc = rng.integers(-1, 8, size=num_reads).astype(np.int32)
+    reads = ReadSet(torch.from_numpy(bases).to(dev),
+                    torch.from_numpy(lengths).to(dev),
+                    torch.full((num_reads,), -1, dtype=torch.int32,
+                               device=dev), 0)
+    tag_bits = min(16, 62 - 2 * max(mer_sizes))
+    wt = local_assembly.build_walk_tables(
+        reads, torch.from_numpy(rc).to(dev), mer_sizes=mer_sizes,
+        tag_bits=tag_bits, capacity=capacity, backend="torch")
+    buf = rng.integers(0, 4, size=(E, K)).astype(np.uint8)
+    tgt = rng.integers(0, 4, size=(E, seed_len)).astype(np.uint8)
+    contig = rng.integers(0, 8, size=E).astype(np.int32)
+    for i in range(0, E, 2):
+        r = rng.integers(0, num_reads)
+        p = rng.integers(0, lengths[r] - K + 1)
+        if rc[r] >= 0 and (bases[r, p:p + K] < 4).all():
+            buf[i], contig[i] = bases[r, p:p + K], rc[r]
+            t = bases[r, p + K + 2:p + K + 2 + seed_len]
+            if len(t) == seed_len and p + K + 2 + seed_len <= lengths[r]:
+                tgt[i] = t
+    hi, lo = kmer.pack_window(torch.from_numpy(buf).to(dev), k=K)
+    t_hi, t_lo = kmer.pack_window(torch.from_numpy(tgt).to(dev), k=seed_len)
+    active = torch.from_numpy(rng.random(E) < 0.8).to(dev)
+    return (wt, tag_bits, (hi, lo, torch.from_numpy(contig).to(dev), active),
+            (t_hi, t_lo))
+
+
+@pytest.mark.parametrize("mer_sizes,capacity,E,max_ext", [
+    ((13, 17, 21), 1 << 12, 37, 64), ((17, 21, 25), 1 << 10, 200, 8),
+    ((17, 21, 25), 1 << 14, 1000, 64), ((3, 5, 7), 1 << 10, 64, 64),
+    ((21,), 1 << 12, 9, 16)])
+@pytest.mark.parametrize("target", [False, True])
+def test_mer_walk_kernel_equals_plain(dev, mer_sizes, capacity, E, max_ext,
+                                      target):
+    rng = np.random.default_rng(capacity + E + max_ext)
+    seed_len = min(min(mer_sizes), 17)
+    wt, tag_bits, walkers, (t_hi, t_lo) = _walk_fixture(
+        rng, dev, mer_sizes, capacity, E, seed_len)
+    kw = dict(mer_sizes=mer_sizes, tag_bits=tag_bits, max_ext=max_ext)
+    if target:
+        kw.update(target_hi=t_hi, target_lo=t_lo, seed_len=seed_len)
+    ops.reset_launches()
+    got = ops.mer_walk(wt, *walkers, **kw)
+    assert ops.LAUNCHES["mer_walk"] == 1
+    want = ops.mer_walk(wt, *walkers, backend="torch", **kw)
+    _same(got, want)
+    assert int(want.ext_len.max()) > 0
+
+
+def test_assemble_on_card_equals_cpu(dev):
+    plan = AssemblyPlan(
+        k_min=17, k_max=21, k_step=4, kmer_capacity=1 << 14, contig_cap=256,
+        max_contig_len=2048, walk_capacity=1 << 15, link_capacity=1 << 10,
+        max_scaffold_len=1 << 12, policy=ExtensionPolicy(err_rate=0.05))
+    comm = mgsim.sample_community(32, num_genomes=3, genome_len=500,
+                                  abundance_sigma=0.3)
+    reads, _ = mgsim.generate_reads(33, comm, num_pairs=600, read_len=60,
+                                    err_rate=0.003)
+    ops.reset_launches()
+    got = Assembler(plan, Local(dev)).assemble(reads)
+    assert all(ops.LAUNCHES[n] > 0 for n in ops.KERNELS), ops.LAUNCHES
+    want = Assembler(plan, Local("cpu")).assemble(reads)
+    for key in ("contigs", "alive", "alignments", "links", "suspended",
+                "components", "scaffolds", "scaffold_seqs"):
+        g, w = got[key], want[key]
+        g = g if isinstance(g, tuple) else (g,)
+        w = w if isinstance(w, tuple) else (w,)
+        _same([x.cpu() for x in g], list(w))
+    assert got["stats"] == want["stats"]
