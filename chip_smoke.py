@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--num-pairs N] [--num-genomes G]
 
-Drives the port's two main paths on one virome-like community: 24
+Drives the port's three main paths on one virome-like community: 24
 genomes of 10-30 kbp (4 of them 1%-divergent strains), 150k reads of
 2 x 150 bp at ~45x mean coverage.  The community is sized so the first
 round's traversal fits the contig_cap of 4096 that the reference's
@@ -11,7 +11,7 @@ round's traversal fits the contig_cap of 4096 that the reference's
 Steps:
 
   1. card name and power limit (nvidia-smi);
-  2. build the five CUDA kernels' libraries from
+  2. build the six CUDA kernels' libraries from
      src/repro_torch/kernels/csrc (one nvcc each, in parallel);
   3. make the reads (host numpy, timed apart);
   4. path 1, Algorithm 1: `contig_rounds` with run_local_assembly=False,
@@ -32,8 +32,22 @@ Steps:
      gap-closing call, dht_insert at the walk tables and at the other
      tables), bit for bit, timed, with this path's launch counts; the
      plain path equal to the kernel path;
-  6. small inputs on the card against the same runs on the CPU (both
-     paths).
+  6. path 3, out of core with gapped alignment: the reads written to a
+     FASTQ file and streamed back in batches of 32768
+     (`iter_fastq_batches` in a `BatchSource`, checked equal to
+     `batches_from_readset`), plan `from_stream(..., gapped_align=True)`,
+     `Assembler(plan, Local()).assemble_stream(src)`, counts reset just
+     before and read just after: all six kernels launched, sw_extend twice
+     per batch of each of the 3 alignment passes; per stage times, stream
+     stats, scaffolds, peak memory beside path 2's, the quality floor;
+     once more under torch.profiler; each kernel against its plain
+     version at its largest call on this path (rows `<kernel>_stream`);
+     the plain path equal to the kernel path; and the streamed run of
+     path 2's plan over the same reads equal to path 2's `assemble` in
+     scaffold sequences and alive contigs;
+  7. small inputs on the card against the same runs on the CPU (all
+     paths, `low_memory=True`, and a checkpointed `assemble_stream` whose
+     second run resumes every k).
 
 Any failure raises (non-zero exit, no result).  The line before the last
 is one JSON object with a record per kernel, path and call site (`path`
@@ -45,8 +59,11 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -67,8 +84,11 @@ KERNELS = {
                    "src/repro/kernels/seed_probe.py:198"),
     "mer_walk": ("src/repro_torch/kernels/csrc/mer_walk.cu",
                  "src/repro/kernels/mer_walk.py:296"),
+    "sw_extend": ("src/repro_torch/kernels/csrc/sw_extend.cu",
+                  "src/repro/kernels/sw_extend.py:101"),
 }
 PATH1_KERNELS = ("kmer_extract", "dht_lookup", "dht_insert", "seed_probe")
+PATH2_KERNELS = PATH1_KERNELS + ("mer_walk",)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 SCALAR_OPS_PER_S = 67e12    # H100 SXM 32-bit rate outside the tensor cores
 # floor on the aligned read share and on the share of long contigs (or
@@ -76,6 +96,7 @@ SCALAR_OPS_PER_S = 67e12    # H100 SXM 32-bit rate outside the tensor cores
 # against garbage, not a target
 MIN_QUALITY = 0.5
 DEFAULT_PAIRS, DEFAULT_GENOMES = 75_000, 20
+STREAM_BATCH = 32768  # reads per streamed batch on path 3
 
 
 def log(*a):
@@ -223,6 +244,13 @@ def bound(name, args, kw, ops, row) -> tuple:
         S = len(positions)
         nbytes = R * L + 4 * R + R * 2 * 9 + 9 * n_valid + 10 * n_hit
         nops = R * S * (3 * seed_len + 40) + R * S * S * 4
+    elif name == "sw_extend":  # ~10 scalar operations per band cell
+        query, target = args[0], args[1]
+        B, QL = query.shape
+        TL = target.shape[1]
+        band = kw.get("band", 15)
+        nbytes = B * (QL + TL + 4 + 4) + 3 * 4 * B
+        nops = B * QL * (2 * band + 1) * 10
     else:  # mer_walk: per step one 16-byte histogram row, 9 B per slot
         E = args[1].numel()
         work = walk_work(args, kw, ops)
@@ -298,47 +326,76 @@ def run_rounds(Assembler, Local, plan, reads, label):
     return out, times, asm.ctx.overflow()
 
 
-class StageClock:
-    """`assemble` hook: synchronized host time and mer_walk launches of
-    each stage (the stage that ends at each event; the last one, gap
-    closing, ends when assemble returns)."""
+def assemble_label(stage, info):
+    """Path 2's stage names: one event per stage and round."""
+    return f"{stage} k={info['k']}" if "k" in info else stage
 
-    def __init__(self, ops):
+
+def stream_label(stage, info):
+    """Path 3's stage names, under which the per-batch events add up."""
+    k = info.get("k")
+    if stage == "analyze":
+        return f"k={k} two-pass analysis (+ contig k-mer merge)"
+    if stage == "contig_rounds" and "batch" in info:
+        return f"k={k} graph, seed index, alignment pass + walk tables"
+    if stage == "contig_rounds":
+        return f"k={k} local assembly walk"
+    if stage == "align":
+        return "final alignment pass + walk tables + witnesses"
+    return stage
+
+
+class StageClock:
+    """Hook of `assemble` / `assemble_stream`: synchronized host time and
+    launches of `kernel` by stage, summed over the events of one label.
+    Each interval is named by the event that ends it; the last one, gap
+    closing, ends when the run returns."""
+
+    def __init__(self, ops, kernel, label):
         self.ops = ops
-        self.stages = []
+        self.kernel = kernel
+        self.label = label
+        self.stages = {}
 
     def start(self):
         torch.cuda.synchronize()
         self.t0 = time.perf_counter()
-        self.w0 = self.ops.LAUNCHES["mer_walk"]
+        self.w0 = self.ops.LAUNCHES[self.kernel]
 
     def __call__(self, stage, info):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        w1 = self.ops.LAUNCHES["mer_walk"]
-        label = f"{stage} k={info['k']}" if "k" in info else stage
-        self.stages.append((label, t1 - self.t0, w1 - self.w0))
+        w1 = self.ops.LAUNCHES[self.kernel]
+        name = self.label(stage, info)
+        t, w = self.stages.get(name, (0.0, 0))
+        self.stages[name] = (t + t1 - self.t0, w + w1 - self.w0)
         self.t0, self.w0 = t1, w1
 
     def finish(self):
         self("gap_closing", {})
 
-    def walks(self, prefix) -> int:
-        return sum(w for label, _, w in self.stages
-                   if label.startswith(prefix))
+    def launches(self, prefix="") -> int:
+        return sum(w for name, (_, w) in self.stages.items()
+                   if name.startswith(prefix))
+
+
+def run_clocked(run, clock, label, what):
+    """run(hook) with per-stage wall times (synchronized, via the hook)."""
+    clock.start()
+    out = run(clock)
+    clock.finish()
+    for name, (t, w) in clock.stages.items():
+        log(f"[{label}] stage {name}: {t:.3f} s, {clock.kernel} launches "
+            f"{w}")
+    log(f"[{label}] {what} total: "
+        f"{sum(t for t, _ in clock.stages.values()):.3f} s")
+    return out, clock
 
 
 def run_assemble(Assembler, Local, plan, reads, ops, label):
-    """assemble with per-stage wall times (synchronized, via the hook)."""
-    clock = StageClock(ops)
-    clock.start()
-    out = Assembler(plan, Local()).assemble(reads, hook=clock)
-    clock.finish()
-    for name, t, w in clock.stages:
-        log(f"[{label}] stage {name}: {t:.3f} s, mer_walk launches {w}")
-    log(f"[{label}] assemble total: "
-        f"{sum(t for _, t, _ in clock.stages):.3f} s")
-    return out, clock
+    return run_clocked(
+        lambda hook: Assembler(plan, Local()).assemble(reads, hook=hook),
+        StageClock(ops, "mer_walk", assemble_label), label, "assemble")
 
 
 def profile(fn, title, top=12):
@@ -550,8 +607,9 @@ def assemble_row(plan):
 
 def phase_assemble(api, ops, reads, comm):
     """Path 2: `assemble` with local assembly, scaffolding and gap
-    closing.  Returns the JSON records of its kernel rows: each of the
-    five kernels at its largest call on this path."""
+    closing.  Returns the JSON records of its kernel rows (each of the
+    five kernels of PATH2_KERNELS at its largest call on this path) and
+    what path 3 compares with."""
     Assembler, AssemblyPlan, Local = api
     plan = AssemblyPlan.from_dataset(reads, (17, 21, 4), unique_rate=0.1)
     log(f"path 2 plan: ks={plan.ks()} ladders "
@@ -571,15 +629,15 @@ def phase_assemble(api, ops, reads, comm):
     log(f"launches in assemble: {launches}")
     log(f"peak device memory (assemble): {peak / 1e9:.2f} GB; overflow: "
         f"{out['overflow']}")
-    missing = [n for n in ops.KERNELS if launches[n] == 0]
+    missing = [n for n in PATH2_KERNELS if launches[n] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on path 2: "
                              f"{missing}")
     if launches["mer_walk"] < 3:
         raise AssertionError(f"mer_walk launched {launches['mer_walk']} "
                              f"times, expected 2 extension + 1 gap walks")
-    walks_extend = clock.walks("contig_rounds")
-    walks_gap = clock.walks("gap_closing")
+    walks_extend = clock.launches("contig_rounds")
+    walks_gap = clock.launches("gap_closing")
     if walks_extend + walks_gap != launches["mer_walk"] or not (
             walks_extend and walks_gap):
         raise AssertionError(f"mer_walk launches by stage: {clock.stages}")
@@ -615,7 +673,7 @@ def phase_assemble(api, ops, reads, comm):
     profile(lambda: Assembler(plan, Local()).assemble(reads), "assemble")
 
     # ---- the inputs of each row's largest call (a warm run) ----
-    with Recorder(ops, ops.KERNELS, assemble_row(plan)) as rec:
+    with Recorder(ops, PATH2_KERNELS, assemble_row(plan)) as rec:
         t0 = time.perf_counter()
         Assembler(plan, Local()).assemble(reads)
         torch.cuda.synchronize()
@@ -643,6 +701,203 @@ def phase_assemble(api, ops, reads, comm):
         raise AssertionError(f"plain run launched kernels: {ops.LAUNCHES}")
     assert_same_assembly(out, p_out, "assemble (kernels vs plain)")
     log("plain path: identical " + ", ".join(ASSEMBLE_KEYS) + ", stats")
+    # what path 3 holds its streamed run of this plan against, on the host
+    path2 = dict(plan=plan, peak=peak, alive=out["alive"].cpu(),
+                 contigs=type(out["contigs"])(*(x.cpu()
+                                                for x in out["contigs"])),
+                 scaffold_seqs=type(seqs)(*(x.cpu() for x in seqs)))
+    return records, path2
+
+
+def write_fastq(reads, path):
+    """The reads as FASTQ, in their order (interleaved pairs r1, r2),
+    every quality 'I' (q40, so no base is trimmed)."""
+    bases = reads.bases.cpu().numpy()
+    lengths = reads.lengths.cpu().numpy()
+    letters = np.frombuffer(b"ACGTN", np.uint8)
+    with open(path, "w") as f:
+        f.writelines(
+            f"@read{i // 2}/{i % 2 + 1}\n"
+            f"{letters[bases[i, :lengths[i]]].tobytes().decode()}\n+\n"
+            f"{'I' * int(lengths[i])}\n" for i in range(len(bases)))
+
+
+def run_stream(Assembler, Local, plan, src, ops, label):
+    return run_clocked(
+        lambda hook: Assembler(plan, Local()).assemble_stream(src,
+                                                              hook=hook),
+        StageClock(ops, "sw_extend", stream_label), label, "assemble_stream")
+
+
+def assert_same_stream(a, b, what):
+    assert_same_assembly(a, b, what)
+    if a["stream_stats"] != b["stream_stats"]:
+        raise AssertionError(f"{what}: stream_stats differ")
+
+
+def phase_stream(api, ops, reads, comm, path2):
+    """Path 3: out-of-core `assemble_stream` from a FASTQ file with gapped
+    alignment.  Returns the JSON records of its kernel rows."""
+    Assembler, AssemblyPlan, Local = api
+    from repro_torch.data.fastq import iter_fastq_batches
+    from repro_torch.stream import BatchSource, batches_from_readset
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        fq = os.path.join(tmp, "reads.fq")
+        t0 = time.perf_counter()
+        write_fastq(reads, fq)
+        log(f"path 3 FASTQ: {reads.num_reads} reads, "
+            f"{os.path.getsize(fq) / 1e6:.1f} MB, written in "
+            f"{time.perf_counter() - t0:.2f} s")
+        src = BatchSource(lambda: iter_fastq_batches(
+            fq, batch_reads=STREAM_BATCH, max_len=reads.max_len,
+            insert_size=reads.insert_size))
+        t0 = time.perf_counter()
+        fq_batches = list(src)
+        parse_s = time.perf_counter() - t0
+        ref_batches = batches_from_readset(reads, STREAM_BATCH)
+        if len(fq_batches) != len(ref_batches):
+            raise AssertionError("FASTQ batches != batches_from_readset")
+        for a, b in zip(fq_batches, ref_batches):
+            for f in ("bases", "lengths", "mate"):
+                if not torch.equal(getattr(a, f), getattr(b, f).cpu()):
+                    raise AssertionError(f"FASTQ batch {f} differs from "
+                                         f"batches_from_readset")
+        n_batches = len(fq_batches)
+        del fq_batches, ref_batches
+        log(f"path 3 source: {n_batches} batches of {STREAM_BATCH} reads "
+            f"(the last padded), equal to batches_from_readset; one pass "
+            f"of the host FASTQ parse: {parse_s:.2f} s")
+        content = sum(len(g) for g in comm.genomes)
+        plan = AssemblyPlan.from_stream(STREAM_BATCH, reads.max_len,
+                                        (17, 21, 4), unique_kmers=content,
+                                        gapped_align=True)
+        log(f"path 3 plan: from_stream(unique_kmers={content}, gapped_align"
+            f"=True): kmer_capacity={plan.kmer_capacity} bloom_slots="
+            f"{plan.bloom_slots} walk_capacity={plan.walk_capacity} "
+            f"contig_cap={plan.contig_cap} max_contig_len="
+            f"{plan.max_contig_len} plan.bytes()={plan.bytes() / 1e9:.2f} GB "
+            f"(path 2: {path2['plan'].bytes() / 1e9:.2f} GB)")
+
+        # ---- main path with the kernels (clean: no recorder, profiler) --
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        out, clock = run_stream(Assembler, Local, plan, src, ops, "kernels")
+        launches = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"launches in assemble_stream: {launches}")
+        log(f"peak device memory (assemble_stream): {peak / 1e9:.2f} GB "
+            f"(path 2 assemble: {path2['peak'] / 1e9:.2f} GB); overflow: "
+            f"{out['overflow']}")
+        missing = [n for n in ops.KERNELS if launches[n] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on path 3: "
+                                 f"{missing}")
+        want_sw = 3 * n_batches * 2
+        if launches["sw_extend"] != want_sw or clock.launches() != want_sw:
+            raise AssertionError(f"sw_extend launched {launches['sw_extend']}"
+                                 f" times, expected {want_sw}: "
+                                 f"{clock.stages}")
+        if out["overflow"].get("kmer_table"):
+            raise AssertionError(f"k-mer table overflow: {out['overflow']}")
+        for s in out["stats"]:
+            st = out["stream_stats"][s.k]
+            log(f"[kernels] round k={s.k}: n_kmers={s.n_kmers}, n_contigs="
+                f"{s.n_contigs}, extended_bases={s.extended_bases}, "
+                f"aligned_frac={s.aligned_frac:.4f}; stream: "
+                f"{st.occurrences_admitted}/{st.occurrences_total} "
+                f"occurrences admitted ({st.admitted_frac:.4f}), batches "
+                f"{st.batches_pass1}+{st.batches_pass2}")
+        scaffs, seqs, links = out["scaffolds"], out["scaffold_seqs"], \
+            out["links"]
+        nm = scaffs.n_members
+        n_gaps = int((nm - 1).clamp(min=0).sum())
+        closed = int(seqs.closed.sum())
+        slens = seqs.lengths.cpu().numpy()
+        slens = slens[slens > 0]
+        share, n_pieces = scaffold_piece_matches(seqs, comm)
+        if not (len(slens) and torch.isfinite(links.gap).all()
+                and seqs.bases.shape == (plan.contig_cap,
+                                         plan.max_scaffold_len)
+                and out["alignments"].contig.shape == (
+                    n_batches * STREAM_BATCH, 2)
+                and torch.isfinite(out["contigs"].depths).all()):
+            raise AssertionError("assemble_stream output has the wrong "
+                                 "shape, no scaffold or non-finite values")
+        log(f"scaffolds: {int(scaffs.n_scaffolds)}, multi-contig "
+            f"{int((nm >= 2).sum())}, links {int(links.valid.sum())} valid, "
+            f"gaps closed {closed} / open {n_gaps - closed}; scaffold N50 "
+            f"{n50(slens)}, longest {int(slens.max())}, {int(slens.sum())} "
+            f"bp; {share:.3f} of {n_pieces} pieces (the 200 longest "
+            f"scaffolds split at N runs) are verbatim genome substrings")
+        if share < MIN_QUALITY or out["stats"][-1].aligned_frac < MIN_QUALITY:
+            raise AssertionError("streamed assembly quality collapsed")
+        # what the peak is made of: one seed-index build over the dense
+        # contig buffer, a transient that does not depend on the reads
+        from repro_torch.core.alignment import build_seed_index
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        build_seed_index(out["contigs"], out["alive"], seed_len=21,
+                         capacity=plan.seed_cap)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - held
+        log(f"one seed-index build over the "
+            f"{list(out['contigs'].bases.shape)} contig buffer: peak "
+            f"{extra / 1e9:.2f} GB above the {held / 1e9:.2f} GB held")
+
+        # ---- where the time goes: one profiled run ----
+        profile(lambda: Assembler(plan, Local()).assemble_stream(src),
+                "assemble_stream")
+
+        # ---- the inputs of each kernel's largest call (a warm run) ----
+        with Recorder(ops, ops.KERNELS,
+                      lambda name, a, kw: f"{name}_stream") as rec:
+            t0 = time.perf_counter()
+            Assembler(plan, Local()).assemble_stream(src)
+            torch.cuda.synchronize()
+            log(f"warm assemble_stream (recording inputs): "
+                f"{time.perf_counter() - t0:.3f} s")
+        rec.check_counts(launches)
+        records = [hold_against_plain(row, call, ops, launches[call[1]],
+                                      "stream")
+                   for row, call in rec.calls.items()]
+        del rec
+
+        # ---- the same path with the plain versions on the card ----
+        plain_plan = dataclasses.replace(plan, kernel_backend="torch")
+        ops.reset_launches()
+        p_out, _ = run_stream(Assembler, Local, plain_plan, src, ops, "plain")
+        if any(ops.LAUNCHES.values()):
+            raise AssertionError(f"plain run launched kernels: "
+                                 f"{ops.LAUNCHES}")
+        assert_same_stream(out, p_out, "assemble_stream (kernels vs plain)")
+        log("plain path: identical " + ", ".join(ASSEMBLE_KEYS)
+            + ", stats, stream_stats")
+        del out, p_out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # ---- streamed = in-memory: path 2's plan over the same reads ----
+    t0 = time.perf_counter()
+    st = Assembler(path2["plan"], Local()).assemble_stream(
+        batches_from_readset(reads, STREAM_BATCH))
+    torch.cuda.synchronize()
+    assert_same(st["alive"], path2["alive"], "alive (streamed vs assemble)")
+    assert_same(st["scaffold_seqs"], path2["scaffold_seqs"],
+                "scaffold_seqs (streamed vs assemble)")
+    c, c2 = st["contigs"], path2["contigs"]
+    same_bases = torch.equal(c.bases.cpu(), c2.bases) and torch.equal(
+        c.lengths.cpu(), c2.lengths)
+    n_depths = int((c.depths.cpu() != c2.depths).sum())
+    log(f"path 2's plan streamed in {STREAM_BATCH}-read batches "
+        f"({time.perf_counter() - t0:.3f} s): scaffold_seqs and alive equal "
+        f"to path 2's assemble; contig bases and lengths equal: "
+        f"{same_bases}; contig depths that differ: {n_depths} (round-2 "
+        f"counts of contig k-mers lack the read singletons the two-sighting "
+        f"rule drops)")
     return records
 
 
@@ -675,6 +930,50 @@ def phase_small(api, mgsim, ExtensionPolicy):
     if not int(c["scaffold_seqs"].n_scaffolds):
         raise AssertionError("small input assemble made no scaffold")
     log("small input, assemble: card run equals the CPU run")
+    return a_reads
+
+
+def phase_small_stream(api, reads):
+    """Small inputs of path 3 on the card against the CPU: gapped
+    `assemble_stream`, `assemble` with low_memory=True, and checkpoint
+    resume (a second run over the same checkpoint_dir resumes every k and
+    returns the same result)."""
+    Assembler, AssemblyPlan, Local = api
+    from repro_torch.stream import batches_from_readset
+
+    batches = batches_from_readset(reads, 256)
+    plan = AssemblyPlan.from_stream(256, reads.max_len, (17, 21, 4),
+                                    unique_kmers=2000, slack=4.0,
+                                    gapped_align=True)
+    g = Assembler(plan, Local()).assemble_stream(batches)
+    c = Assembler(plan, Local("cpu")).assemble_stream(batches)
+    assert_same_stream(g, c, "small input assemble_stream (card vs CPU)")
+    if not int(c["scaffold_seqs"].n_scaffolds):
+        raise AssertionError("small input assemble_stream made no scaffold")
+    log("small input, gapped assemble_stream: card run equals the CPU run")
+    lm = AssemblyPlan.from_dataset(reads, (17, 21, 4), unique_rate=0.2,
+                                   low_memory=True)
+    assert_same_assembly(Assembler(lm, Local()).assemble(reads),
+                         Assembler(lm, Local("cpu")).assemble(reads),
+                         "small input low_memory assemble (card vs CPU)")
+    log("small input, assemble(low_memory=True): card run equals the CPU "
+        "run")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        a = Assembler(plan, Local()).assemble_stream(batches,
+                                                     checkpoint_dir=tmp)
+        b = Assembler(plan, Local()).assemble_stream(batches,
+                                                     checkpoint_dir=tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if any(s.resumed for s in a["stream_stats"].values()) or not all(
+            s.resumed for s in b["stream_stats"].values()):
+        raise AssertionError("checkpoint: the second run did not resume "
+                             "every k")
+    assert_same_assembly(a, g, "checkpointed run vs plain run")
+    assert_same_assembly(b, a, "resumed run vs checkpointed run")
+    log("small input, checkpoint: the second run resumed every k and "
+        "returned the same result")
 
 
 def main(argv=None) -> int:
@@ -735,8 +1034,12 @@ def main(argv=None) -> int:
             f"{DEFAULT_GENOMES}")
 
     records = phase_contig_rounds(api, ops, dbg, reads, comm)
-    records += phase_assemble(api, ops, reads, comm)
-    phase_small(api, mgsim, ExtensionPolicy)
+    path2_records, path2 = phase_assemble(api, ops, reads, comm)
+    records += path2_records
+    records += phase_stream(api, ops, reads, comm, path2)
+    del path2
+    small_reads = phase_small(api, mgsim, ExtensionPolicy)
+    phase_small_stream(api, small_reads)
 
     log(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -1,9 +1,11 @@
 """`Assembler`: the front door to the pipeline (mirrors
-`repro.api.assembler`; in-memory, single device).
+`repro.api.assembler`; single device).
 
     plan = AssemblyPlan.from_dataset(reads, (17, 21, 4))
     out = Assembler(plan, Local()).assemble(reads)
     contigs, alive, al, stats = Assembler(plan, Local()).contig_rounds(reads)
+    splan = AssemblyPlan.from_stream(32768, 150, unique_kmers=500_000)
+    out = Assembler(splan, Local()).assemble_stream(batch_source)
 
 Algorithm 1 (iterative contig generation): per k of the plan, k-mer
 analysis with the previous round's contig k-mers as pseudo-counted
@@ -11,6 +13,8 @@ evidence (§II-H), dBG traversal, bubble merging and pruning, read
 alignment against the new contigs, and local assembly of the contig ends
 (§II-G) when the plan asks for it.  `assemble` adds Algorithm 3: a fresh
 alignment, link witnesses, scaffolding and gap closing (§III).
+`assemble_stream` runs the same algorithms out of core, over a
+re-iterable source of fixed-shape read batches (`repro_torch.stream`).
 """
 from __future__ import annotations
 
@@ -208,3 +212,34 @@ class Assembler:
         stage boundary and may raise to abort there (see `drive`).
         """
         return drive(self.assemble_iter(reads, hmm_hit), hook)
+
+    # ---- out-of-core execution ----
+
+    def assemble_stream_iter(self, batches, hmm_hit=None, *,
+                             checkpoint_dir: Optional[str] = None):
+        """Generator twin of `assemble_stream`: yields (stage, info)
+        events between streamed batches, after each per-k analysis and at
+        every stage boundary; returns the result dict (see
+        `repro_torch.stream.driver.iter_assemble_stream`)."""
+        from repro_torch.stream import driver
+
+        return driver.iter_assemble_stream(
+            self.plan, self.ctx, batches, hmm_hit=hmm_hit,
+            checkpoint_dir=checkpoint_dir)
+
+    def assemble_stream(self, batches, hmm_hit=None, *,
+                        checkpoint_dir: Optional[str] = None,
+                        hook=None) -> dict:
+        """Full pipeline over a re-iterable source of fixed-shape batches.
+
+        The out-of-core twin of `assemble`: the same result dict plus
+        per-k "stream_stats", with the read set never resident: k-mer
+        analysis streams twice through the Bloom two-sighting rule, and
+        the read-proportional stages take one batch at a time.  Size the
+        plan with `AssemblyPlan.from_stream`, whose bill does not depend
+        on the read count.  `checkpoint_dir` checkpoints the streamed
+        analysis at batch boundaries and resumes from it; `hook` as in
+        `assemble`.
+        """
+        return drive(self.assemble_stream_iter(
+            batches, hmm_hit, checkpoint_dir=checkpoint_dir), hook)

@@ -2,11 +2,15 @@
 `repro.api.context`; `Local` only).
 
 `Assembler` drives Algorithm 1 + Algorithm 3 against the stage protocol
-below.  `Local` runs every stage on one device: the CUDA card unless the
-caller asks for the CPU.  It never falls back: without a visible card and
-without `device="cpu"` it raises.
+below: the in-memory stages (`prepare`, `kmer_set`, `align`, `extend`,
+`link_candidates`) and the streaming ones (`prepare_stream`,
+`stream_kmer_set`, `align_batch`).  `Local` runs every stage on one
+device: the CUDA card unless the caller asks for the CPU.  It never falls
+back: without a visible card and without `device="cpu"` it raises.
 """
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -38,6 +42,26 @@ class ExecutionContext:
     def link_candidates(self, al, contigs, alive):
         """Per-read splint/span link witnesses (flat candidate arrays)."""
         raise NotImplementedError
+
+    # ---- streaming protocol ----
+
+    def prepare_stream(self, plan, *, checkpoint_dir=None) -> None:
+        """Bind a plan for out-of-core execution (no resident read set)."""
+        raise NotImplementedError
+
+    def stream_kmer_set(self, k: int, batches, prev):
+        """Two-pass streamed k-mer set over a re-iterable batch source:
+        returns (KmerSet, overflow dict, StreamStats)."""
+        raise NotImplementedError
+
+    def align_batch(self, batch, contigs, sidx, seed_len: int):
+        """Alignments of one batch (already on the context's device)
+        against the seed index."""
+        raise NotImplementedError
+
+    def _kmer_ckpt_dir(self, k: int):
+        base = getattr(self, "_stream_ckpt", None)
+        return None if base is None else os.path.join(base, f"k{k}")
 
     def overflow(self) -> dict:
         """Accumulated overflow counts (reported, never dropped)."""
@@ -74,12 +98,12 @@ class Local(ExecutionContext):
 
     def kmer_set(self, k: int, prev):
         plan = self.plan
-        if plan.low_memory:
-            raise NotImplementedError(
-                "low_memory=True (Bloom two-sighting admission) is not "
-                "ported yet: ROADMAP.md Queue 1, Streaming item")
         hi, lo, left, right, valid = kmer_analysis.occurrences(
             self.reads, k=k, backend=plan.kernel_backend)
+        if plan.low_memory:
+            valid = kmer_analysis.admit_two_sightings(
+                hi, lo, valid,
+                bloom_bits=max(1 << 16, plan.kmer_capacity * 8))
         tab = kmer_analysis.count_occurrences(
             hi, lo, left, right, valid, capacity=plan.kmer_capacity)
         del hi, lo, left, right, valid
@@ -121,3 +145,41 @@ class Local(ExecutionContext):
     def link_candidates(self, al, contigs, alive):
         clens = torch.where(alive, contigs.lengths, 0)
         return scaffolding.candidate_links(al, self.reads, clens)
+
+    # ---- streaming ----
+
+    def prepare_stream(self, plan, *, checkpoint_dir=None) -> None:
+        self.plan = plan
+        self._stream_ckpt = checkpoint_dir
+        self._reset_overflow()
+
+    def stream_kmer_set(self, k: int, batches, prev):
+        from repro_torch.stream import analysis as stream_analysis
+
+        plan = self.plan
+        run, sstats = stream_analysis.streaming_kmer_analysis(
+            batches, k=k, capacity=plan.kmer_capacity,
+            bloom_bits=plan.bloom_slots,
+            checkpoint_dir=self._kmer_ckpt_dir(k),
+            backend=plan.kernel_backend, device=self.device)
+        if prev is not None:
+            from .assembler import extract_contig_kmers
+
+            contigs, alive = prev
+            ptab = extract_contig_kmers(
+                contigs, alive, k=k, capacity=plan.kmer_capacity,
+                weight=plan.contig_pseudo_weight,
+                backend=plan.kernel_backend)
+            run = kmer_analysis.merge_counts(run, ptab,
+                                             capacity=plan.kmer_capacity)
+            sstats.table_overflow += int(run["overflow"])
+        self._note_overflow("kmer_table", sstats.table_overflow)
+        kset = kmer_analysis.finalize(run, min_count=plan.min_count,
+                                      policy=plan.policy)
+        return kset, {"table": bool(sstats.table_overflow)}, sstats
+
+    def align_batch(self, batch, contigs, sidx, seed_len: int):
+        return alignment.align_reads(
+            batch, contigs, sidx, seed_len=seed_len,
+            stride=self.plan.seed_stride, gapped=self.plan.gapped_align,
+            backend=self.plan.kernel_backend)

@@ -3,8 +3,11 @@
 
 `AssemblyPlan.from_dataset(reads, k_range, slack=...)` derives every stage
 capacity from the dataset shape the paper's §II-B way: provision from an
-upfront cardinality estimate, report overflow, never grow.  `plan.bytes()`
-states the memory bill before any array is allocated.  The fields are the
+upfront cardinality estimate, report overflow, never grow.
+`AssemblyPlan.from_stream(batch_reads, max_len, ...)` sizes an out-of-core
+plan from the batch shape and the estimated k-mer population instead, so
+its bill does not grow with the read count.  `plan.bytes()` states the
+memory bill before any array is allocated.  The fields are the
 reference's, so a reference plan's `dataclasses.asdict` builds this one
 (`bridge.plan_from_fields`).
 
@@ -12,8 +15,7 @@ Differences from the reference, all in what the port does not run yet:
 
   * `kernel_backend` is None (kernels on the card, plain versions on the
     CPU) or "torch" (plain versions everywhere), see `kernels.ops`;
-  * `num_shards` must be 1 and `batch_reads` None: the Mesh and streaming
-    contexts are not ported.
+  * `num_shards` must be 1: the Mesh context is not ported.
 """
 from __future__ import annotations
 
@@ -169,17 +171,22 @@ class AssemblyPlan:
     walk_capacity: int = 1 << 16
     link_capacity: int = 1 << 12
     max_scaffold_len: int = 1 << 13
-    # --- distributed / streaming execution (not ported) ---
+    # --- distributed execution (Mesh, not ported: num_shards must be 1) ---
     num_shards: int = 1
     slack: float = 2.0
     pre_capacity: Optional[int] = None
     shard_table_capacity: Optional[int] = None
     route_capacity: Optional[int] = None
     localize_out_factor: int = 2
+    # --- streaming execution ---
+    # batch_reads: rows per streamed batch (None = in-memory plan);
+    # bloom_bits: Bloom filter slots of the two-pass admission (None =
+    # derive from kmer_capacity).  Both set by `from_stream`.
     batch_reads: Optional[int] = None
     bloom_bits: Optional[int] = None
     # dataset shape (num_reads, max_len), recorded by `from_dataset` /
-    # `bind` so `bytes()` can price the read-proportional buffers
+    # `bind` so `bytes()` can price the read-proportional buffers; for a
+    # streaming plan (batch_reads, max_len)
     dataset_shape: Optional[tuple] = None
 
     def __post_init__(self):
@@ -199,11 +206,10 @@ class AssemblyPlan:
                 f"AssemblyPlan: kernel_backend={self.kernel_backend!r} "
                 f"unknown; valid: {BACKENDS}"
             )
-        if self.num_shards != 1 or self.batch_reads is not None:
+        if self.num_shards != 1:
             raise PlanError(
-                "AssemblyPlan: only single-device in-memory plans are "
-                "ported (num_shards=1, batch_reads=None); Mesh and "
-                "streaming are later ROADMAP.md Queue 1 items"
+                "AssemblyPlan: only single-device plans are ported "
+                "(num_shards=1); Mesh is a later ROADMAP.md Queue 1 item"
             )
         if self.seed_capacity is not None and int(self.seed_capacity) <= 0:
             raise PlanError(
@@ -212,6 +218,20 @@ class AssemblyPlan:
             )
         if self.slack <= 0:
             raise PlanError(f"AssemblyPlan: slack={self.slack} must be > 0")
+        if self.batch_reads is not None and (
+            self.batch_reads < 2 or self.batch_reads % 2
+        ):
+            raise PlanError(
+                f"AssemblyPlan: batch_reads={self.batch_reads} must be even "
+                f"and >= 2 — batches hold whole read pairs"
+            )
+        if self.bloom_bits is not None and (
+            self.bloom_bits <= 0 or self.bloom_bits & (self.bloom_bits - 1)
+        ):
+            raise PlanError(
+                f"AssemblyPlan: bloom_bits={self.bloom_bits} must be a "
+                f"positive power of two (Bloom positions mask the hash)"
+            )
 
     def ks(self) -> list:
         return list(range(self.k_min, self.k_max + 1, self.k_step))
@@ -222,6 +242,16 @@ class AssemblyPlan:
     @property
     def seed_cap(self) -> int:
         return self.seed_capacity or 2 * self.kmer_capacity
+
+    @property
+    def bloom_slots(self) -> int:
+        """Bloom filter slots of the streamed two-pass admission: 16x the
+        k-mer table by default, so the filter sketches the raw distinct
+        population (true k-mers + error singletons) at a low
+        false-positive rate."""
+        if self.bloom_bits is not None:
+            return self.bloom_bits
+        return next_pow2(max(1 << 14, 16 * self.kmer_capacity))
 
     @classmethod
     def from_dataset(
@@ -271,12 +301,76 @@ class AssemblyPlan:
         base.update(overrides)
         return cls(**_clamp_contig_cap(base, overrides))
 
+    @classmethod
+    def from_stream(
+        cls,
+        batch_reads: int,
+        max_len: int,
+        k_range: tuple = (17, 21, 4),
+        *,
+        unique_kmers: Optional[int] = None,
+        bloom_bits: Optional[int] = None,
+        slack: float = 2.0,
+        unique_rate: float = 0.1,
+        total_reads: Optional[int] = None,
+        **overrides,
+    ) -> "AssemblyPlan":
+        """Size a streaming plan from the batch shape, not the dataset size.
+
+        `plan.bytes()` is a function of `batch_reads`, `max_len` and the
+        capacity estimates; `total_reads` is accepted for symmetry and
+        ignored, so the bill does not grow with the dataset.
+
+        Args:
+          batch_reads: rows per streamed batch (even; whole pairs).
+          max_len: batch column width (max read length).
+          unique_kmers: estimate of the distinct true k-mer population
+            (community genome content, the paper's §II-B cardinality
+            estimate); defaults to `unique_rate` x one batch's occurrences.
+          bloom_bits: Bloom filter slots (default: from the k-mer table).
+          total_reads: ignored for sizing.
+        """
+        del total_reads  # sizing must not depend on dataset size
+        k_min, k_max, k_step = _normalize_k_range(k_range)
+        B = int(batch_reads)
+        L = int(max_len)
+        windows = max(L - k_min + 1, 1)
+        occ_batch = B * windows
+        unique = max(int(unique_kmers or unique_rate * occ_batch), 1)
+        kmer_capacity = max(1 << 10, next_pow2(int(slack * unique)))
+        contig_cap = max(256, next_pow2(int(slack * unique // (2 * k_min))))
+        max_contig_len = int(min(max(1 << 11, next_pow2(unique // 4)),
+                                 1 << 15))
+        # (contig, mer) pairs are occurrence-collapsed and bounded by the
+        # assembled bases x rungs: a function of `unique`, not of reads
+        walk_capacity = max(1 << 12, next_pow2(int(slack * 2 * unique)))
+        # the link store is contig-pair scale (witnesses stream per batch)
+        link_capacity = int(min(max(1 << 10,
+                                    next_pow2(int(slack * 16 * contig_cap))),
+                                1 << 16))
+        max_scaffold_len = int(min(4 * max_contig_len, 1 << 16))
+        base = dict(
+            k_min=k_min, k_max=k_max, k_step=k_step,
+            kmer_capacity=kmer_capacity,
+            contig_cap=contig_cap,
+            max_contig_len=max_contig_len,
+            walk_capacity=walk_capacity,
+            link_capacity=link_capacity,
+            max_scaffold_len=max_scaffold_len,
+            slack=slack,
+            batch_reads=B,
+            bloom_bits=bloom_bits,
+            dataset_shape=(B, L),
+        )
+        base.update(overrides)
+        return cls(**_clamp_contig_cap(base, overrides))
+
     def stage_bytes(self) -> dict:
         """Estimated peak static-buffer bytes per stage (the reference's
         single-shard bill)."""
         R, L = self.dataset_shape or (0, 0)
         occ_rows = R * (max(L - self.k_min + 1, 1) if L else 0)
-        return {
+        out = {
             "kmer_occurrences": occ_rows * 11,
             "kmer_tables": self.kmer_capacity * 48 * 3,
             "contigs": self.contig_cap * (self.max_contig_len + 12),
@@ -288,6 +382,10 @@ class AssemblyPlan:
                 self.max_members * 9 + self.max_scaffold_len
             ),
         }
+        if self.batch_reads is not None:
+            # two persistent Bloom filters (one byte a slot)
+            out["bloom_filters"] = 2 * self.bloom_slots
+        return out
 
     def bind(self, reads) -> "AssemblyPlan":
         """Copy of this plan with the dataset shape attached."""

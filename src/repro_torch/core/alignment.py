@@ -1,11 +1,12 @@
 """merAligner (paper §II-F): seed-and-extend alignment (mirrors
-`repro.core.alignment`, Hamming-verified path).
+`repro.core.alignment`).
 
 Seeds (k-mers of the reads) are looked up in a seed index, a hash table
 over the contig k-mers.  Each read votes among its seeds' candidate
 placements and keeps the best two distinct-contig candidates
 (`kernels.ops.seed_probe`); each candidate is verified by Hamming
-extension.
+extension, or with `gapped=True` by the banded Smith-Waterman extension
+of `kernels.ops.sw_extend`.
 """
 from __future__ import annotations
 
@@ -16,7 +17,8 @@ import torch
 from repro_torch.kernels import ops
 
 from . import dht, kmer
-from .types import ContigSet, ReadSet, U32_MASK, lane_const, sort_key
+from .types import INVALID_BASE, ContigSet, ReadSet, U32_MASK, lane_const, \
+    sort_key
 
 NONE = -1
 
@@ -127,20 +129,51 @@ def _verify(reads: ReadSet, contigs: ContigSet, cid, cstart, orient):
             inside.sum(dim=-1).to(torch.int32))
 
 
+def _verify_gapped(reads: ReadSet, contigs: ContigSet, cid, cstart, orient,
+                   *, backend=None):
+    """Banded Smith-Waterman verification of one candidate per read.
+
+    The query is the read oriented onto the contig's forward strand; the
+    target is the L-wide contig window starting at cstart, with 4s outside
+    the contig.  Returns (score, overlap): the DP score replaces the
+    Hamming match count, and the overlap is the Hamming inside-count, so
+    downstream consumers see the same geometry either way.
+    """
+    R, L = reads.bases.shape
+    dev = reads.bases.device
+    _, ov = _verify(reads, contigs, cid, cstart, orient)
+    i = torch.arange(L, dtype=torch.int32, device=dev)[None, :]
+    rlen = reads.lengths[:, None]
+    # reverse-complemented read, front-packed to its live length
+    rc_idx = (rlen - 1 - i).clamp(min=0).to(torch.int64)
+    rc = kmer.complement_base(torch.gather(reads.bases, 1, rc_idx))
+    rc = torch.where(i < rlen, rc, INVALID_BASE)
+    q = torch.where(orient[:, None] == 0, reads.bases, rc)
+    cpos = cstart[:, None] + i
+    crow = cid.clamp(min=0).to(torch.int64)
+    clen = torch.where(cid >= 0, contigs.lengths[crow], 0)
+    tin = (cpos >= 0) & (cpos < clen[:, None])
+    ccol = cpos.clamp(0, contigs.max_len - 1).to(torch.int64)
+    t = torch.where(tin, contigs.bases[crow[:, None], ccol], INVALID_BASE)
+    qlen = torch.where(cid >= 0, reads.lengths, 0)
+    tlen = torch.where(cid >= 0, L, 0).to(torch.int32)
+    score, _, _ = ops.sw_extend(q.contiguous(), t.contiguous(), qlen, tlen,
+                                backend=backend)
+    return score, ov
+
+
 def align_reads(reads: ReadSet, contigs: ContigSet, index: SeedIndex, *,
                 seed_len: int, stride: int = 16, min_frac: float = 0.9,
                 gapped: bool = False, backend=None) -> Alignments:
     """Seed-and-extend alignment of a read batch against the seed index.
 
-    The front half is one `ops.seed_probe` call; verification is Hamming
-    extension.  A candidate is kept when matches >= min_frac * overlap
-    (float32, as the reference) and overlap >= seed_len.
+    The front half is one `ops.seed_probe` call.  Verification is Hamming
+    extension: a candidate is kept when matches >= min_frac * overlap and
+    overlap >= seed_len.  `gapped=True` scores through `ops.sw_extend`
+    instead, with the floor in the DP's units: score >= (2 * min_frac - 1)
+    * overlap (equal when gap-free).  Both floors are float32, as the
+    reference's weakly typed Python float.
     """
-    if gapped:
-        raise NotImplementedError(
-            "gapped=True (banded Smith-Waterman verification) needs the "
-            "sw_extend kernel, not ported yet: ROADMAP.md Queue 1, Gapped "
-            "alignment item")
     pos_list = _seed_positions(reads.max_len, seed_len, stride)
     t = index.table
     cc, cs, co = ops.seed_probe(
@@ -148,11 +181,15 @@ def align_reads(reads: ReadSet, contigs: ContigSet, index: SeedIndex, *,
         t.max_probe, index.contig, index.pos, index.flip, index.multi,
         seed_len=seed_len, positions=tuple(pos_list), backend=backend,
     )
-    frac = torch.tensor(min_frac, dtype=torch.float32, device=cc.device)
+    floor = 2.0 * min_frac - 1.0 if gapped else min_frac
+    frac = torch.tensor(floor, dtype=torch.float32, device=cc.device)
     cols = []
     for j in range(2):
         c, s, o = cc[:, j], cs[:, j], co[:, j]
-        m, ov = _verify(reads, contigs, c, s, o)
+        if gapped:
+            m, ov = _verify_gapped(reads, contigs, c, s, o, backend=backend)
+        else:
+            m, ov = _verify(reads, contigs, c, s, o)
         ok = ((c >= 0) & (m >= frac * torch.clamp(ov, min=1))
               & (ov >= index.seed_len))
         cols.append((torch.where(ok, c, NONE), s, o, m, ov))

@@ -1,10 +1,13 @@
-"""K-mer analysis (paper §II-B), the in-memory part (mirrors
-`repro.core.kmer_analysis`).
+"""K-mer analysis (paper §II-B; mirrors `repro.core.kmer_analysis`).
 
 Counting is sort + run-length segmentation: sort the canonical codes,
 find the equal-key runs, and segment-sum the occurrence counts and the
 extension histograms.  `compute_extensions` applies MetaHipMer's adaptive
-extension threshold t_hq = max(t_base, err_rate * depth) (§II-C).
+extension threshold t_hq = max(t_base, err_rate * depth) (§II-C).  The
+Bloom two-sighting admission (`bloom_observe`, `bloom_admit`,
+`admit_two_sightings`) keeps error singletons out of the count table; it
+serves `analyze(low_memory=True)` and the streamed analysis
+(`repro_torch.stream`).
 
 The sort key is `types.sort_key`, whose signed order is the unsigned
 (hi, lo) order, so invalid rows (keyed 0xFFFFFFFF, 0xFFFFFFFF) sort last as
@@ -20,6 +23,7 @@ import torch
 
 from repro_torch.kernels import ops
 
+from . import bloom
 from .types import EMPTY_HI, EXT_F, EXT_X, KmerSet, ReadSet, lane_const, \
     sort_key
 
@@ -187,6 +191,86 @@ def compute_extensions(count, left_cnt, right_cnt, policy: ExtensionPolicy):
         return torch.where(total == 0, EXT_X, code).to(torch.uint8)
 
     return side(left_cnt), side(right_cnt)
+
+
+def dup_in_chunk(hi, lo, valid):
+    """Flag the 2nd+ occurrence of each valid key within the chunk (exact;
+    stable sort, so the first occurrence in row order is the one left
+    unflagged)."""
+    shi, slo, sv, perm = _sorted_by_key(hi, lo, valid)
+    dup_sorted = torch.zeros_like(sv)
+    dup_sorted[1:] = ((shi[1:] == shi[:-1]) & (slo[1:] == slo[:-1])
+                      & (shi[1:] != _EMPTY))
+    out = torch.zeros_like(valid)
+    out[perm] = dup_sorted
+    return out
+
+
+def bloom_observe(f1: bloom.BloomFilter, f2: bloom.BloomFilter, hi, lo,
+                  valid):
+    """One pass-1 step of the two-sighting rule over one occurrence batch.
+
+    Keys already in f1 (sighted in an earlier batch) or duplicated within
+    this batch are marked "seen twice" in f2; every valid key then enters
+    f1.  Returns (f1, f2).
+    """
+    seen = bloom.query(f1, hi, lo) | dup_in_chunk(hi, lo, valid)
+    f2 = bloom.insert(f2, hi, lo, valid & seen)
+    f1 = bloom.insert(f1, hi, lo, valid)
+    return f1, f2
+
+
+def bloom_admit(f2: bloom.BloomFilter, hi, lo, valid):
+    """Pass-2 admission: occurrences whose key was sighted >= twice (no
+    false negatives; the exact min_count floor removes the false
+    positives)."""
+    return valid & bloom.query(f2, hi, lo)
+
+
+def empty_count_table(capacity: int, device=None) -> dict:
+    """An empty count table, the identity element of `merge_counts`."""
+    return {
+        "hi": torch.full((capacity,), _EMPTY, dtype=torch.int32,
+                         device=device),
+        "lo": torch.zeros((capacity,), dtype=torch.int32, device=device),
+        "count": torch.zeros((capacity,), dtype=torch.int32, device=device),
+        "left_cnt": torch.zeros((capacity, 4), dtype=torch.int32,
+                                device=device),
+        "right_cnt": torch.zeros((capacity, 4), dtype=torch.int32,
+                                 device=device),
+        "n_unique": torch.zeros((), dtype=torch.int32, device=device),
+        "overflow": torch.zeros((), dtype=torch.bool, device=device),
+    }
+
+
+def admit_two_sightings(hi, lo, valid, *, bloom_bits: int,
+                        num_chunks: int = 4):
+    """The paper's Bloom-filter two-pass admission (§II-B) over one
+    occurrence set: pass 1 streams `num_chunks` chunks through
+    `bloom_observe`, pass 2 admits with `bloom_admit`."""
+    n = hi.shape[0]
+    chunk = -(-n // num_chunks)
+    f1 = bloom.empty(bloom_bits, device=hi.device)
+    f2 = bloom.empty(bloom_bits, device=hi.device)
+    for c in range(num_chunks):
+        sl = slice(c * chunk, min((c + 1) * chunk, n))
+        if sl.start >= n:
+            break
+        f1, f2 = bloom_observe(f1, f2, hi[sl], lo[sl], valid[sl])
+    return bloom_admit(f2, hi, lo, valid)
+
+
+def analyze(reads: ReadSet, *, k: int, capacity: int, min_count: int = 2,
+            policy: ExtensionPolicy = ExtensionPolicy(),
+            low_memory: bool = False, bloom_bits: int = 1 << 16,
+            backend=None) -> KmerSet:
+    """Single-device k-mer analysis: occurrences -> counted KmerSet;
+    `low_memory=True` admits only k-mers sighted at least twice."""
+    hi, lo, left, right, valid = occurrences(reads, k=k, backend=backend)
+    if low_memory:
+        valid = admit_two_sightings(hi, lo, valid, bloom_bits=bloom_bits)
+    tab = count_occurrences(hi, lo, left, right, valid, capacity=capacity)
+    return finalize(tab, min_count=min_count, policy=policy)
 
 
 def finalize(tab: dict, *, min_count: int, policy: ExtensionPolicy) -> KmerSet:

@@ -125,6 +125,48 @@ def generate_reads(seed: int, community: Community, num_pairs: int,
     return reads, ReadTruth(genome_id=t_gid, pos=t_pos, strand=t_strand)
 
 
+def generate_read_batches(seed: int, community: Community, num_pairs: int,
+                          *, pairs_per_batch: int, read_len: int = 60,
+                          insert_mean: int = 180, insert_sd: int = 10,
+                          err_rate: float = 0.0):
+    """Yield fixed-shape `[2 * pairs_per_batch, read_len]` ReadSet batches.
+
+    The data source of the out-of-core pipeline: batches are generated on
+    demand, batch b from seed `seed + b`, so regeneration is deterministic
+    and `repro_torch.stream.BatchSource` makes it re-iterable:
+
+        src = BatchSource(lambda: generate_read_batches(0, comm, 10**9,
+                                                        pairs_per_batch=4096))
+
+    The final short batch pads with inert rows (zero length, INVALID
+    bases, mate -1).
+    """
+    if pairs_per_batch < 1:
+        raise ValueError(f"pairs_per_batch={pairs_per_batch} must be >= 1")
+    B = 2 * pairs_per_batch
+    done = 0
+    batch_idx = 0
+    while done < num_pairs:
+        n = min(pairs_per_batch, num_pairs - done)
+        reads, _ = generate_reads(
+            seed + batch_idx, community, n, read_len=read_len,
+            insert_mean=insert_mean, insert_sd=insert_sd, err_rate=err_rate)
+        if 2 * n < B:
+            pad = B - 2 * n
+            reads = ReadSet(
+                bases=torch.cat([reads.bases, torch.full(
+                    (pad, read_len), 4, dtype=torch.uint8)]),
+                lengths=torch.cat([reads.lengths, torch.zeros(
+                    (pad,), dtype=torch.int32)]),
+                mate=torch.cat([reads.mate, torch.full(
+                    (pad,), -1, dtype=torch.int32)]),
+                insert_size=reads.insert_size,
+            )
+        yield reads
+        done += n
+        batch_idx += 1
+
+
 def single_genome_reads(seed: int, genome_len: int = 1000,
                         coverage: float = 20.0, read_len: int = 60,
                         err_rate: float = 0.0, **kw):

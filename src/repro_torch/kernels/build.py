@@ -55,6 +55,10 @@ SIGNATURES = {
         "mer_walk_launch": [_P] * 6 + [_L, _P, _P, _I, _L] + [_I] * 5
         + [_P] * 5 + [_P],
     },
+    "sw_extend": {
+        "sw_extend_max_band": [],
+        "sw_extend_launch": [_P] * 4 + [_L] + [_I] * 6 + [_P] * 3 + [_P],
+    },
 }
 
 _lock = threading.Lock()

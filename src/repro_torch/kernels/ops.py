@@ -24,7 +24,7 @@ from . import build, ref
 from .ref import KmerLanes, MerWalkOut  # re-export  # noqa: F401
 
 KERNELS = ("kmer_extract", "dht_lookup", "dht_insert", "seed_probe",
-           "mer_walk")
+           "mer_walk", "sw_extend")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 
@@ -319,4 +319,46 @@ def mer_walk(wt, start_hi, start_lo, contig, active, *, mer_sizes: tuple,
         (ctypes.c_int * n)(*mer_sizes), n, cap, tag_bits, max_ext,
         min_votes, dominance, seed_len, *map(_ptr, out), _stream(dev))
     _launched("mer_walk", lib, err)
+    return out
+
+
+def sw_extend(query, target, qlen, tlen, *, band: int = 15, match: int = 1,
+              mismatch: int = -1, gap: int = -1, backend=None):
+    """Banded semi-global extension scores (§II-F) of B (query, target)
+    pairs: query [B, QL] and target [B, TL] uint8, qlen / tlen [B] int32.
+
+    Returns (best_score, best_qpos, best_tpos), each [B] int32, 1-based DP
+    coordinates of the best cell (0 = no positive extension).  Any B; the
+    kernel takes one warp per pair, so there is no block padding to hide.
+    """
+    if not _use_kernel(backend, query):
+        return ref.sw_extend_ref(query, target, qlen, tlen, band=band,
+                                 match=match, mismatch=mismatch, gap=gap)
+    dev = query.device
+    lib = build.library("sw_extend")
+    max_band = lib.sw_extend_max_band()
+    if not 0 <= band <= max_band:
+        raise ValueError(f"sw_extend: band={band}; the kernel holds a band "
+                         f"of 2*band+1 <= 31 cells in one warp (band <= "
+                         f"{max_band})")
+    B, QL = query.shape
+    TL = target.shape[1]
+    if target.shape[0] != B or qlen.shape != (B,) or tlen.shape != (B,):
+        raise ValueError(f"sw_extend: query {tuple(query.shape)}, target "
+                         f"{tuple(target.shape)}, qlen {tuple(qlen.shape)}, "
+                         f"tlen {tuple(tlen.shape)} do not share B")
+    if QL < 1 or 4 * (QL + TL) > 48 * 1024:
+        raise ValueError(f"sw_extend: rows of QL={QL}, TL={TL} do not fit "
+                         f"the kernel's shared memory")
+    for name, t, dt in (("query", query, torch.uint8),
+                        ("target", target, torch.uint8),
+                        ("qlen", qlen, torch.int32),
+                        ("tlen", tlen, torch.int32)):
+        _check(name, t, dt, dev)
+    out = tuple(torch.empty((B,), dtype=torch.int32, device=dev)
+                for _ in range(3))
+    err = lib.sw_extend_launch(
+        _ptr(query), _ptr(target), _ptr(qlen), _ptr(tlen), B, QL, TL, band,
+        match, mismatch, gap, *map(_ptr, out), _stream(dev))
+    _launched("sw_extend", lib, err)
     return out

@@ -2,8 +2,9 @@
 
 Each `*_ref` has its kernel's interface and the reference's semantics op
 for op: `kmer_extract_ref`, `dht_lookup_ref`, `dht_insert_ref`,
-`seed_probe_ref` and `mer_walk_ref` follow `repro/kernels/ref.py` and the
-jnp table rounds of `repro/core/dht.py` (`insert_jnp`, `lookup_jnp`).
+`seed_probe_ref`, `mer_walk_ref` and `sw_extend_ref` follow
+`repro/kernels/ref.py` and the jnp table rounds of `repro/core/dht.py`
+(`insert_jnp`, `lookup_jnp`).
 `kernels.ops` serves them for CPU tensors, and `chip_smoke.py` holds each
 CUDA kernel against them on the card.  Lanes are int32 bit patterns,
 widened to int64 for arithmetic (`core.types`).
@@ -332,3 +333,68 @@ def seed_probe_ref(bases, lengths, slot_hi, slot_lo, used, max_probe,
     return (torch.stack([c1, c2], dim=1).to(torch.int32),
             torch.stack([s1, s2], dim=1),
             torch.stack([o1, o2], dim=1))
+
+
+SW_NEGINF = -(1 << 20)
+
+
+def sw_extend_ref(query, target, qlen, tlen, *, band: int = 15,
+                  match: int = 1, mismatch: int = -1, gap: int = -1):
+    """Plain version of sw_extend: banded semi-global extension DP.
+
+    Computes what `repro/kernels/ref.py:sw_extend_ref` (the reference's
+    dense [QL+1, TL+1] DP) computes, in the band form of the TPU kernel
+    (`repro/kernels/sw_extend.py`): one step per query row over [B, 2*band+1]
+    cells stored target-relative (offset o = j - ii + band).  The in-row
+    gap chain is an exact max-plus prefix scan (shifts 1, 2, 4, ... with
+    penalties d * gap).  The band form equals the dense DP when
+    mismatch >= 2 * gap (a cell left of the band reaches it only through a
+    left gap, which the diagonal always beats), as at +1/-1/-1.
+
+    query [B, QL] / target [B, TL] uint8, qlen / tlen [B] int32.  Returns
+    (best_score, best_qpos, best_tpos), each [B] int32: the largest valid
+    cell of rows >= 1, the first row that reaches it and the first column
+    in that row; (0, 0, 0) without a positive cell.
+    """
+    B, QL = query.shape
+    TL = target.shape[1]
+    dev = query.device
+    BW = 2 * band + 1
+    # band-padded target: tpad[:, i + o] is t[j - 1] at row ii = i + 1
+    width = max(TL, QL) + 2 * band
+    tpad = torch.full((B, width), INVALID_BASE, dtype=torch.uint8,
+                      device=dev)
+    tpad[:, band:band + TL] = target
+    off = torch.arange(BW, dtype=torch.int32, device=dev)[None, :]
+    qlen, tlen = qlen[:, None], tlen[:, None]
+    neg = torch.full((B, 1), SW_NEGINF, dtype=torch.int32, device=dev)
+    j0 = off - band
+    row = torch.where((j0 >= 0) & (j0 <= tlen.clamp(max=band)), j0 * gap,
+                      SW_NEGINF).to(torch.int32)
+    best = torch.zeros((B,), dtype=torch.int32, device=dev)
+    bq = torch.zeros_like(best)
+    bt = torch.zeros_like(best)
+    for i in range(QL):
+        ii = i + 1
+        ts = tpad[:, i:i + BW]
+        qi = query[:, i:i + 1]
+        sub = torch.where((ts == qi) & (qi < 4), match,
+                          mismatch).to(torch.int32)
+        up = torch.cat([row[:, 1:], neg], dim=1) + gap
+        cand = torch.maximum(row + sub, up)
+        j = off - band + ii
+        cand = torch.where(j == 0, ii * gap, cand)
+        d = 1
+        while d < BW:  # left chain: max over d' < 2d of cand[o - d'] + d' gap
+            shifted = torch.cat([neg.expand(B, d), cand[:, :-d]], dim=1)
+            cand = torch.maximum(cand, shifted + d * gap)
+            d *= 2
+        valid = (j >= 0) & (j <= tlen) & (ii <= qlen)
+        row = torch.where(valid, cand, SW_NEGINF)
+        rb = row.max(dim=1).values
+        rj = torch.argmax(row, dim=1).to(torch.int32) - band + ii
+        upd = rb > best
+        best = torch.where(upd, rb, best)
+        bq = torch.where(upd, ii, bq)
+        bt = torch.where(upd, rj, bt)
+    return best, bq, bt

@@ -1,0 +1,235 @@
+"""Two-pass streaming k-mer analysis over batch sources (paper §II-A/B;
+mirrors `repro.stream.analysis`, single device).
+
+  pass 1  every batch's canonical occurrences enter Bloom filter f1; a key
+          already in f1 (sighted in an earlier batch) or duplicated within
+          its own batch marks f2, "seen at least twice";
+  pass 2  the batches re-stream; only occurrences whose key is in f2 are
+          counted, and each batch's partial table folds into a persistent
+          running table with `merge_counts`.
+
+The device holds one batch plus fixed-capacity filters and tables,
+whatever the read count.  Batch boundaries are checkpoint boundaries:
+`StreamCheckpoint` saves (filters, running table, counters, a
+fingerprint of the data and parameters) after every batch through
+`train.checkpoint.Checkpointer`, so an interrupted analysis resumes at
+the last completed batch.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import zlib
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import bloom, kmer_analysis
+from repro_torch.train.checkpoint import Checkpointer
+
+from .batches import require_reiterable
+
+
+@dataclasses.dataclass
+class StreamStats:
+    """Accounting for one streamed analysis (reported, like overflow)."""
+
+    batches_pass1: int = 0
+    batches_pass2: int = 0
+    occurrences_total: int = 0
+    occurrences_admitted: int = 0
+    table_overflow: int = 0
+    route_overflow: int = 0
+    resumed: bool = False
+
+    @property
+    def admitted_frac(self) -> float:
+        return self.occurrences_admitted / max(self.occurrences_total, 1)
+
+
+class StreamCheckpoint:
+    """Batch-boundary checkpoint/resume of streaming state.
+
+    The checkpoint step encodes (pass, next_batch) as
+    `pass * PHASE + next_batch`; the state is a flat dict of tensors
+    holding a fingerprint, and restoring against another fingerprint
+    raises instead of serving a previous run's table.
+    """
+
+    PHASE = 1 << 20  # batches per pass bound for step encoding
+
+    def __init__(self, directory: str):
+        self.ck = Checkpointer(directory, keep=2)
+
+    def save(self, phase: int, next_batch: int, state: dict) -> None:
+        self.ck.save(phase * self.PHASE + next_batch, state)
+
+    def restore(self, template: dict):
+        """-> (state, phase, next_batch), or (template, 0, 0) if none."""
+        try:
+            state, step = self.ck.restore(template)
+        except FileNotFoundError:
+            return template, 0, 0
+        if int(state["fp"]) != int(template["fp"]):
+            raise ValueError(
+                "checkpoint directory holds streaming state for a "
+                "different dataset or plan (fingerprint mismatch) — point "
+                "checkpoint_dir at a fresh directory per run"
+            )
+        return state, step // self.PHASE, step % self.PHASE
+
+
+def job_checkpoint_dir(root: str, job: str) -> str:
+    """Stable per-job streaming-checkpoint directory under `root`: the job
+    name slugged to a filesystem-safe form and suffixed with a CRC of the
+    raw name, so names that slug alike still differ."""
+    slug = "".join(c if c.isalnum() or c in "-_" else "_" for c in job)[:64]
+    return os.path.join(root, f"{slug}-{zlib.crc32(job.encode()):08x}")
+
+
+def _fingerprint(batches, **params) -> int:
+    """CRC of the analysis parameters and the first batch's content."""
+    h = zlib.crc32(repr(sorted(params.items())).encode())
+    for batch in batches:
+        h = zlib.crc32(batch.bases.cpu().numpy().tobytes(), h)
+        h = zlib.crc32(batch.lengths.cpu().numpy().tobytes(), h)
+        break
+    return h
+
+
+_COUNTERS = ("batches_pass1", "batches_pass2", "occurrences_total",
+             "occurrences_admitted", "table_overflow", "route_overflow")
+
+
+def _counters(stats: StreamStats) -> torch.Tensor:
+    return torch.tensor([getattr(stats, f) for f in _COUNTERS],
+                        dtype=torch.int64)
+
+
+def _restore_counters(stats: StreamStats, t: torch.Tensor) -> None:
+    for f, v in zip(_COUNTERS, t.tolist()):
+        setattr(stats, f, int(v))
+
+
+def _run_two_pass(batches, *, stats: StreamStats, checkpoint_dir,
+                  fingerprint_params: dict, state_fn, load_fn,
+                  pass1_step, pass2_step) -> None:
+    """The two-pass skeleton: checkpoint restore (with the fingerprint
+    guard), batch skipping, per-batch saves, counter persistence and the
+    pass-1 against pass-2 batch count check.  `state_fn(fp)` snapshots the
+    state, `load_fn(state)` restores it, `pass1_step(batch)` /
+    `pass2_step(batch)` process one batch."""
+    require_reiterable(batches)
+    ck = StreamCheckpoint(checkpoint_dir) if checkpoint_dir else None
+    fp = 0
+    phase, start = 0, 0
+    if ck is not None:
+        fp = _fingerprint(batches, **fingerprint_params)
+        state, phase, start = ck.restore(state_fn(fp))
+        load_fn(state)
+        _restore_counters(stats, state["counters"])
+        stats.resumed = phase > 0 or start > 0
+
+    if phase == 0:
+        for i, batch in enumerate(batches):
+            if i < start:
+                continue
+            pass1_step(batch)
+            stats.batches_pass1 += 1
+            if ck is not None:
+                ck.save(0, i + 1, state_fn(fp))
+        phase, start = 1, 0
+
+    for i, batch in enumerate(batches):
+        if i < start:
+            continue
+        pass2_step(batch)
+        stats.batches_pass2 += 1
+        if ck is not None:
+            ck.save(1, i + 1, state_fn(fp))
+    if not stats.resumed and stats.batches_pass2 != stats.batches_pass1:
+        raise RuntimeError(
+            f"batch source yielded {stats.batches_pass1} batches in pass 1 "
+            f"but {stats.batches_pass2} in pass 2 — the source must "
+            f"re-stream identically (is it deterministic?)"
+        )
+
+
+def streaming_kmer_analysis(
+    batches,
+    *,
+    k: int,
+    capacity: int,
+    bloom_bits: int,
+    num_hashes: int = 3,
+    checkpoint_dir: Optional[str] = None,
+    backend=None,
+    device=None,
+):
+    """Single-device two-pass streamed count table.
+
+    Args:
+      batches: re-iterable source of fixed-shape ReadSet batches; iterated
+        twice.  Each batch moves to `device` (default: the first batch's
+        device) while it is processed.
+      capacity: running-table rows, sized for the true (>= 2-sighting)
+        k-mer population, not the raw occurrence population.
+      bloom_bits: slots per Bloom filter (two filters are kept).
+      checkpoint_dir: when set, state checkpoints after every batch and a
+        later call with the same directory resumes there.
+    Returns:
+      (run, stats): the running count-table dict (the schema of
+      `count_occurrences`) and a `StreamStats`.
+    """
+    if device is None:
+        require_reiterable(batches)
+        device = next(iter(batches)).bases.device
+    f1 = bloom.empty(bloom_bits, num_hashes, device=device)
+    f2 = bloom.empty(bloom_bits, num_hashes, device=device)
+    run = kmer_analysis.empty_count_table(capacity, device=device)
+    stats = StreamStats()
+
+    def state_fn(fp):
+        return {"f1_bits": f1.bits, "f2_bits": f2.bits,
+                "counters": _counters(stats),
+                "fp": torch.tensor(fp, dtype=torch.int64),
+                **{f"run_{key}": v for key, v in run.items()}}
+
+    def load_fn(state):
+        nonlocal f1, f2, run
+        f1 = bloom.BloomFilter(bits=state["f1_bits"], num_hashes=num_hashes)
+        f2 = bloom.BloomFilter(bits=state["f2_bits"], num_hashes=num_hashes)
+        run = {key[len("run_"):]: v for key, v in state.items()
+               if key.startswith("run_")}
+
+    def pass1_step(batch):
+        nonlocal f1, f2
+        hi, lo, _, _, valid = kmer_analysis.occurrences(
+            batch.to(device), k=k, backend=backend)
+        f1, f2 = kmer_analysis.bloom_observe(f1, f2, hi, lo, valid)
+
+    def pass2_step(batch):
+        nonlocal run
+        hi, lo, left, right, valid = kmer_analysis.occurrences(
+            batch.to(device), k=k, backend=backend)
+        admitted = kmer_analysis.bloom_admit(f2, hi, lo, valid)
+        stats.occurrences_total += int(valid.sum())
+        stats.occurrences_admitted += int(admitted.sum())
+        tab = kmer_analysis.count_occurrences(
+            hi, lo, left, right, admitted, capacity=capacity)
+        del hi, lo, left, right, valid, admitted
+        run = kmer_analysis.merge_counts(run, tab, capacity=capacity)
+        # per-fold overflow events (>= 1 means keys were cut); the
+        # counters checkpoint with the state, so a resume keeps them
+        stats.table_overflow += int(tab["overflow"]) + int(run["overflow"])
+
+    _run_two_pass(
+        batches, stats=stats, checkpoint_dir=checkpoint_dir,
+        fingerprint_params=dict(k=k, capacity=capacity,
+                                bloom_bits=bloom_bits,
+                                num_hashes=num_hashes),
+        state_fn=state_fn, load_fn=load_fn,
+        pass1_step=pass1_step, pass2_step=pass2_step,
+    )
+    return run, stats

@@ -3,8 +3,9 @@
 Each hand-written kernel (`repro_torch/kernels/csrc/`) is held to its plain
 PyTorch version (`repro_torch.kernels.ref`, itself held to the JAX
 reference by the other test_torch_* files) at small shapes with the edge
-cases of those files, plus the whole `contig_rounds` and `assemble` on the
-card against the CPU run.  Skipped where no CUDA card is visible; on the card:
+cases of those files, plus the whole `contig_rounds`, `assemble` and
+`assemble_stream` on the card against the CPU run.  Skipped where no CUDA
+card is visible; on the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
@@ -20,6 +21,7 @@ from repro_torch.core.kmer_analysis import ExtensionPolicy
 from repro_torch.core.types import ReadSet
 from repro_torch.data import mgsim
 from repro_torch.kernels import ops
+from repro_torch.stream import batches_from_readset
 
 pytestmark = pytest.mark.cuda
 
@@ -136,9 +138,10 @@ def test_contig_rounds_on_card_equals_cpu(dev):
                                     err_rate=0.003)
     ops.reset_launches()
     got = Assembler(plan, Local(dev)).contig_rounds(reads)
-    # without local assembly, every kernel but the walk runs
+    # without local assembly and gapped alignment, every kernel but the
+    # walk and the gapped DP runs
     assert all(ops.LAUNCHES[n] > 0 for n in ops.KERNELS
-               if n != "mer_walk"), ops.LAUNCHES
+               if n not in ("mer_walk", "sw_extend")), ops.LAUNCHES
     want = Assembler(plan, Local("cpu")).contig_rounds(reads)
     for g, w in zip(got[:3], want[:3]):
         g = g if isinstance(g, tuple) else (g,)
@@ -216,7 +219,10 @@ def test_assemble_on_card_equals_cpu(dev):
                                     err_rate=0.003)
     ops.reset_launches()
     got = Assembler(plan, Local(dev)).assemble(reads)
-    assert all(ops.LAUNCHES[n] > 0 for n in ops.KERNELS), ops.LAUNCHES
+    # Hamming verification (gapped_align=False): no gapped DP
+    assert all(ops.LAUNCHES[n] > 0 for n in ops.KERNELS
+               if n != "sw_extend"), ops.LAUNCHES
+    assert ops.LAUNCHES["sw_extend"] == 0
     want = Assembler(plan, Local("cpu")).assemble(reads)
     for key in ("contigs", "alive", "alignments", "links", "suspended",
                 "components", "scaffolds", "scaffold_seqs"):
@@ -225,3 +231,85 @@ def test_assemble_on_card_equals_cpu(dev):
         w = w if isinstance(w, tuple) else (w,)
         _same([x.cpu() for x in g], list(w))
     assert got["stats"] == want["stats"]
+
+
+def _sw_inputs(rng, B, QL, TL, dev, indels):
+    q = rng.integers(0, 4, size=(B, QL)).astype(np.uint8)
+    if indels:  # each target: its query with 3 edits, then random bases
+        t = np.zeros((B, TL), np.uint8)
+        for b in range(B):
+            seq = list(q[b])
+            for _ in range(3):
+                p = rng.integers(0, len(seq))
+                op = rng.integers(0, 3)
+                if op == 0:
+                    seq[p] = rng.integers(0, 4)
+                elif op == 1:
+                    del seq[p]
+                else:
+                    seq.insert(p, rng.integers(0, 4))
+            t[b] = (seq + list(rng.integers(0, 4, TL)))[:TL]
+    else:
+        t = rng.integers(0, 4, size=(B, TL)).astype(np.uint8)
+    t[rng.random((B, TL)) < 0.02] = 4
+    q[rng.random((B, QL)) < 0.02] = 4
+    qlen = rng.integers(0, QL + 1, size=B).astype(np.int32)
+    tlen = rng.integers(0, TL + 1, size=B).astype(np.int32)
+    full = (B + 1) // 2  # rows of full live length
+    qlen[:full], tlen[:full] = QL, TL
+    return [torch.from_numpy(x).to(dev) for x in (q, t, qlen, tlen)]
+
+
+@pytest.mark.parametrize("band", [0, 7, 15])
+@pytest.mark.parametrize("B,QL,TL", [(1, 32, 40), (9, 64, 64), (37, 40, 20),
+                                     (5000, 150, 150)])
+@pytest.mark.parametrize("indels", [False, True])
+def test_sw_extend_kernel_equals_plain(dev, band, B, QL, TL, indels):
+    rng = np.random.default_rng(band * 7 + B + QL + indels)
+    args = _sw_inputs(rng, B, QL, TL, dev, indels)
+    ops.reset_launches()
+    got = ops.sw_extend(*args, band=band)
+    assert ops.LAUNCHES["sw_extend"] == 1
+    _same(got, ops.sw_extend(*args, band=band, backend="torch"))
+    if indels and band:
+        assert int(got[0][0]) > min(QL, TL) // 2
+
+
+def test_sw_extend_kernel_refuses_a_wide_band(dev):
+    z = torch.zeros((2, 8), dtype=torch.uint8, device=dev)
+    n = torch.full((2,), 8, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="band"):
+        ops.sw_extend(z, z, n, n, band=16)
+
+
+def test_assemble_stream_on_card_equals_cpu(dev):
+    """Gapped streamed assembly under a from_stream plan, with a
+    checkpoint directory; then the in-memory low_memory assemble."""
+    comm = mgsim.sample_community(5, num_genomes=3, genome_len=300,
+                                  abundance_sigma=0.3)
+    reads, _ = mgsim.generate_reads(6, comm, num_pairs=400, read_len=60,
+                                    err_rate=0.003)
+    plan = AssemblyPlan.from_stream(256, 60, (17, 21, 4), unique_kmers=1000,
+                                    slack=4.0, gapped_align=True)
+    batches = batches_from_readset(reads, 256)
+    ops.reset_launches()
+    got = Assembler(plan, Local(dev)).assemble_stream(batches)
+    assert all(ops.LAUNCHES[n] > 0 for n in ops.KERNELS), ops.LAUNCHES
+    assert ops.LAUNCHES["sw_extend"] == 3 * len(batches) * 2
+    want = Assembler(plan, Local("cpu")).assemble_stream(batches)
+    for key in ("contigs", "alive", "alignments", "links", "suspended",
+                "components", "scaffolds", "scaffold_seqs"):
+        g, w = got[key], want[key]
+        g = g if isinstance(g, tuple) else (g,)
+        w = w if isinstance(w, tuple) else (w,)
+        _same([x.cpu() for x in g], list(w))
+    assert got["stats"] == want["stats"]
+    assert got["stream_stats"] == want["stream_stats"]
+    lm = AssemblyPlan.from_dataset(reads, (17, 21, 4), unique_rate=0.2,
+                                   low_memory=True)
+    g = Assembler(lm, Local(dev)).assemble(reads)
+    w = Assembler(lm, Local("cpu")).assemble(reads)
+    for f in w["scaffold_seqs"]._fields:
+        assert torch.equal(getattr(g["scaffold_seqs"], f).cpu(),
+                           getattr(w["scaffold_seqs"], f)), f
+    assert g["stats"] == w["stats"]
