@@ -2,16 +2,17 @@
 
     python3 chip_smoke.py [--num-pairs N] [--num-genomes G]
 
-Drives the port's three main paths on one virome-like community: 24
+Drives the port's three assembly paths on one virome-like community: 24
 genomes of 10-30 kbp (4 of them 1%-divergent strains), 150k reads of
-2 x 150 bp at ~45x mean coverage.  The community is sized so the first
+2 x 150 bp at ~45x mean coverage, and its LM serving path (path 4) on
+llama3.2-3b at full width with random fp32 weights.  The community is sized so the first
 round's traversal fits the contig_cap of 4096 that the reference's
 (contig, mer) tag space allows with the (17, 21, 25) walk ladder: with
 40 genomes (+4 strains) and 240k reads that traversal finds 5893 chains.
 Steps:
 
   1. card name and power limit (nvidia-smi);
-  2. build the six CUDA kernels' libraries from
+  2. build the seven CUDA kernels' libraries from
      src/repro_torch/kernels/csrc (one nvcc each, in parallel);
   3. make the reads (host numpy, timed apart);
   4. path 1, Algorithm 1: `contig_rounds` with run_local_assembly=False,
@@ -47,12 +48,26 @@ Steps:
      scaffold sequences and alive contigs;
   7. small inputs on the card against the same runs on the CPU (all
      paths, `low_memory=True`, and a checkpointed `assemble_stream` whose
-     second run resumes every k).
+     second run resumes every k);
+  8. path 4, the LM serving path: llama3.2-3b (28 layers, d_model 3072,
+     3.213 G parameters) built on the card by `init_params` from a seeded
+     torch.Generator; `forward(use_kernel=True)` on 2 x 4096 seeded
+     tokens, counts reset just before and read just after: flash_attention
+     launched once a layer and no other kernel; the plain path
+     (`use_kernel=False`) against it (max abs logit difference, argmax);
+     once more under torch.profiler, recording the last layer's call;
+     flash_attention against its plain version at that call in fp32 and in
+     bf16, timed beside SDPA; the decode `Engine` serving 8 seeded prompts
+     of 16-128 tokens for 160 greedy steps (steps/s, tokens/s), each
+     slot's first token's logits against a prefill of the 8 prompts; 32
+     decode steps under torch.profiler; stage times and peak memory.
 
 Any failure raises (non-zero exit, no result).  The line before the last
 is one JSON object with a record per kernel, path and call site (`path`
-names the main path whose shapes and launch counts it carries); the last line
-is {"ok": true, "device": {...}}.  Without a CUDA card it exits non-zero.
+names the main path whose shapes and launch counts it carries; the two
+flash_attention rows, fp32 and bf16, both carry the kernel's launches on
+path 4, which runs fp32); the last line is {"ok": true, "device": {...}}.
+Without a CUDA card it exits non-zero.
 """
 from __future__ import annotations
 
@@ -86,17 +101,35 @@ KERNELS = {
                  "src/repro/kernels/mer_walk.py:296"),
     "sw_extend": ("src/repro_torch/kernels/csrc/sw_extend.cu",
                   "src/repro/kernels/sw_extend.py:101"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:68"),
 }
+# the kernels each main path launches; every other kernel must launch 0
+# times on that path
 PATH1_KERNELS = ("kmer_extract", "dht_lookup", "dht_insert", "seed_probe")
 PATH2_KERNELS = PATH1_KERNELS + ("mer_walk",)
+PATH3_KERNELS = PATH2_KERNELS + ("sw_extend",)
+PATH4_KERNELS = ("flash_attention",)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 SCALAR_OPS_PER_S = 67e12    # H100 SXM 32-bit rate outside the tensor cores
+TENSOR_BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
 # floor on the aligned read share and on the share of long contigs (or
 # scaffold pieces) that are verbatim genome substrings: a sanity gate
 # against garbage, not a target
 MIN_QUALITY = 0.5
 DEFAULT_PAIRS, DEFAULT_GENOMES = 75_000, 20
 STREAM_BATCH = 32768  # reads per streamed batch on path 3
+# path 4, the LM serving path
+LM_ARCH = "llama3.2-3b"
+LM_DEVICE = "cuda"
+LM_SEED = 15
+PREFILL_B, PREFILL_S = 2, 4096   # CUT from prefill_32k's 32 x 32768
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW_TOKENS = 8, 512, 160
+PROMPT_LENS = (16, 128)
+# fp32 logits of two fp32 paths (another attention order, other cuBLAS
+# shapes) over 28 layers; the logits of the random model have std ~1
+LM_LOGIT_TOL = 1e-3
+FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
 
 
 def log(*a):
@@ -175,6 +208,17 @@ class Recorder:
         if per_op != want:
             raise AssertionError(f"recorded run's calls {per_op} != clean "
                                  f"run's launches {want}")
+
+
+def check_path_kernels(launches, kernels, path):
+    """Every kernel of the path launched, and no other kernel did."""
+    missing = [n for n in kernels if launches[n] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on {path}: {missing}")
+    stray = {n: c for n, c in launches.items() if c and n not in kernels}
+    if stray:
+        raise AssertionError(f"kernels of another path launched on {path}: "
+                             f"{stray}")
 
 
 def max_abs_err(got, want) -> float:
@@ -511,10 +555,7 @@ def phase_contig_rounds(api, ops, dbg, reads, comm):
     peak = torch.cuda.max_memory_allocated()
     log(f"launches in contig_rounds: {launches}")
     log(f"peak device memory: {peak / 1e9:.2f} GB; overflow: {ovf}")
-    missing = [n for n in PATH1_KERNELS if launches[n] == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on path 1: "
-                             f"{missing}")
+    check_path_kernels(launches, PATH1_KERNELS, "path 1")
     if ovf.get("kmer_table"):
         raise AssertionError(f"k-mer table overflow: {ovf}")
     live = alive.cpu().numpy()
@@ -629,10 +670,7 @@ def phase_assemble(api, ops, reads, comm):
     log(f"launches in assemble: {launches}")
     log(f"peak device memory (assemble): {peak / 1e9:.2f} GB; overflow: "
         f"{out['overflow']}")
-    missing = [n for n in PATH2_KERNELS if launches[n] == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on path 2: "
-                             f"{missing}")
+    check_path_kernels(launches, PATH2_KERNELS, "path 2")
     if launches["mer_walk"] < 3:
         raise AssertionError(f"mer_walk launched {launches['mer_walk']} "
                              f"times, expected 2 extension + 1 gap walks")
@@ -791,10 +829,7 @@ def phase_stream(api, ops, reads, comm, path2):
         log(f"peak device memory (assemble_stream): {peak / 1e9:.2f} GB "
             f"(path 2 assemble: {path2['peak'] / 1e9:.2f} GB); overflow: "
             f"{out['overflow']}")
-        missing = [n for n in ops.KERNELS if launches[n] == 0]
-        if missing:
-            raise AssertionError(f"kernels never launched on path 3: "
-                                 f"{missing}")
+        check_path_kernels(launches, PATH3_KERNELS, "path 3")
         want_sw = 3 * n_batches * 2
         if launches["sw_extend"] != want_sw or clock.launches() != want_sw:
             raise AssertionError(f"sw_extend launched {launches['sw_extend']}"
@@ -853,7 +888,7 @@ def phase_stream(api, ops, reads, comm, path2):
                 "assemble_stream")
 
         # ---- the inputs of each kernel's largest call (a warm run) ----
-        with Recorder(ops, ops.KERNELS,
+        with Recorder(ops, PATH3_KERNELS,
                       lambda name, a, kw: f"{name}_stream") as rec:
             t0 = time.perf_counter()
             Assembler(plan, Local()).assemble_stream(src)
@@ -976,6 +1011,251 @@ def phase_small_stream(api, reads):
         "returned the same result")
 
 
+def flash_row(row, ops, q, k, v, launches, card):
+    """flash_attention against its plain version at the path's call:
+    within the tests' tolerance (|d| <= tol + tol |plain|), timed, with the
+    SDPA call of the same shape and dtype as the library yardstick."""
+    source, replaces = KERNELS["flash_attention"]
+    tol = FLASH_TOL[q.dtype]
+    got = ops.flash_attention(q, k, v)
+    want = ops.flash_attention(q, k, v, backend="torch")
+    d = (got.float() - want.float()).abs()
+    err = float(d.max())
+    used = float((d / (tol + tol * want.float().abs())).max())
+    if used > 1:
+        raise AssertionError(f"{row}: kernel != plain version (max abs err "
+                             f"{err}, tolerance {tol})")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_err = float((sdpa(q, k, v, is_causal=True, enable_gqa=True).float()
+                     - want.float()).abs().max())
+    del got, want, d
+    ms = median_ms(lambda: ops.flash_attention(q, k, v))
+    plain_ms = median_ms(lambda: ops.flash_attention(q, k, v, backend="torch"))
+    library_ms = median_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                        enable_gqa=True))
+    B, H, S, D = q.shape
+    flops = 4 * B * H * D * S * (S + 1) // 2  # causal pairs
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    rate = SCALAR_OPS_PER_S if q.dtype == torch.float32 else \
+        TENSOR_BF16_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / rate * 1e3
+    b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                               "operations")
+    log(f"{row}: q {list(q.shape)}, k/v {list(k.shape)}, {q.dtype}, causal; "
+        f"max abs err {err:.3g} against plain, {used:.3f} of the tolerance "
+        f"|d| <= {tol} + {tol} |plain|; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms "
+        f"(max abs err {lib_err:.3g} against plain); bound {b_ms:.4f} ms "
+        f"({b_by}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.0f} MB); {card}")
+    return dict(
+        name=row, route="cuda", source=source, replaces=replaces,
+        launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+        path="lm_prefill", dtype=str(q.dtype).replace("torch.", ""))
+
+
+def top2_gap(logits):
+    top = logits.topk(2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def phase_lm(ops, card):
+    """Path 4: llama3.2-3b at full width, random fp32 weights; the prefill
+    forward through the flash kernel against the plain path, the kernel
+    rows, and the decode Engine serving 8 requests, cross-checked against
+    the prefill.  Returns the JSON records of the kernel's two rows."""
+    from repro_torch.models import registry, transformer
+    from repro_torch.models.decode_engine import Engine, ServeConfig
+
+    # fp32 products in full fp32: the kernel path is held against the
+    # plain path, and TF32 would keep ~3 digits
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    cfg = registry.get(LM_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held0 = torch.cuda.memory_allocated()
+    stages = {}
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=LM_DEVICE)
+    gen.manual_seed(LM_SEED)
+    model = transformer.init_params(cfg, gen, device=LM_DEVICE)
+    torch.cuda.synchronize()
+    stages["init_params"] = time.perf_counter() - t0
+    n = sum(p.numel() for p in model.parameters())
+    want_n = int(cfg.param_count()) + (2 * cfg.n_layers + 1) * cfg.d_model
+    weights = torch.cuda.memory_allocated() - held0
+    log(f"path 4 model: {cfg.name}, {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV heads of "
+        f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, tied; {n} parameters "
+        f"(param_count() + norms = {want_n}), {weights / 1e9:.2f} GB fp32 on "
+        f"the card, random from torch.Generator seed {LM_SEED}, built in "
+        f"{stages['init_params']:.2f} s")
+    if n != want_n or next(model.parameters()).device.type != LM_DEVICE:
+        raise AssertionError("the model is not llama3.2-3b at full width on "
+                             "the card")
+
+    # ---- prefill: the kernel path (clean), then the plain path ----
+    log(f"CUT: prefill of B={PREFILL_B} x S={PREFILL_S} tokens instead of "
+        f"prefill_32k's 32 x 32768: in fp32 that shape would take most of "
+        f"the run's time limit")
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
+                           generator=gen, device=LM_DEVICE, dtype=torch.int32)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    logits, aux = transformer.forward(cfg, model, {"tokens": tokens},
+                                      use_kernel=True)
+    torch.cuda.synchronize()
+    stages["prefill (kernel path)"] = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    log(f"launches in the prefill forward: {launches}")
+    check_path_kernels(launches, PATH4_KERNELS, "path 4")
+    if launches["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"flash_attention launched "
+                             f"{launches['flash_attention']} times, expected "
+                             f"one a layer ({cfg.n_layers})")
+    vpad = -(-cfg.vocab // 16) * 16
+    if logits.shape != (PREFILL_B, PREFILL_S, vpad) or not bool(
+            torch.isfinite(logits).all()) or float(aux) != 0.0:
+        raise AssertionError("prefill logits have the wrong shape or are "
+                             "not finite")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    plain, _ = transformer.forward(cfg, model, {"tokens": tokens})
+    torch.cuda.synchronize()
+    stages["prefill (plain path)"] = time.perf_counter() - t0
+    if any(ops.LAUNCHES.values()):
+        raise AssertionError(f"plain path launched kernels: {ops.LAUNCHES}")
+    diff = float((logits - plain).abs().max())
+    same = logits.argmax(-1) == plain.argmax(-1)
+    clear = top2_gap(plain) > 2 * diff
+    log(f"prefill, kernel path against plain path: max abs logit difference "
+        f"{diff:.3g} (bound {LM_LOGIT_TOL}; logits std "
+        f"{float(plain.std()):.3f}); argmax agrees at "
+        f"{int(same.sum())} of {same.numel()} positions, at every one of the "
+        f"{int(clear.sum())} whose top-2 gap exceeds twice the difference: "
+        f"{bool(same[clear].all())}")
+    if diff > LM_LOGIT_TOL or not bool(same[clear].all()):
+        raise AssertionError("prefill: the kernel path disagrees with the "
+                             "plain path")
+    del logits, plain, same, clear
+
+    # ---- where the time goes, and the path's call of the kernel ----
+    calls = []
+    orig = ops.flash_attention
+
+    def record(q, k, v, **kw):
+        calls[:] = [(q, k, v)]
+        return orig(q, k, v, **kw)
+
+    ops.flash_attention = record
+    try:
+        profile(lambda: transformer.forward(cfg, model, {"tokens": tokens},
+                                            use_kernel=True),
+                "prefill forward, kernel path")
+    finally:
+        ops.flash_attention = orig
+    q, k, v = calls[-1]  # the last layer's call
+    records = [flash_row("flash_attention", ops, q, k, v,
+                         launches["flash_attention"], card)]
+    records.append(flash_row("flash_attention_bf16", ops, q.bfloat16(),
+                             k.bfloat16(), v.bfloat16(),
+                             launches["flash_attention"], card))
+    del calls, q, k, v
+
+    # ---- serving: the decode Engine answers 8 requests ----
+    rng = np.random.default_rng(LM_SEED)
+    lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, size=SERVE_SLOTS)
+    lens[:2] = PROMPT_LENS  # both ends of the range
+    prompts = [rng.integers(1, cfg.vocab, size=int(n)).tolist()
+               for n in lens]
+    eng = Engine(cfg, model, ServeConfig(max_len=SERVE_MAX_LEN,
+                                         temperature=0.0),
+                 batch_slots=SERVE_SLOTS, device=LM_DEVICE)
+    for p in prompts:
+        eng.submit(p)
+    first = {}  # slot -> logits of the step that emitted its first token
+    step = eng._step
+
+    def recording_step(state, toks):
+        out, state = step(state, toks)
+        t = state["pos"] - 1
+        for s, p in enumerate(prompts):
+            if len(p) - 1 == t:
+                first[s] = out[s, -1].clone()
+        return out, state
+
+    eng._step = recording_step
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    outs = eng.run(max_new_tokens=SERVE_NEW_TOKENS)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    stages["serve (Engine.run)"] = serve_s
+    if any(ops.LAUNCHES.values()):
+        raise AssertionError(f"decode launched kernels: {ops.LAUNCHES}")
+    n_steps = eng.state["pos"]
+    n_tok = sum(len(o) for o in outs)
+    floor_ms = weights / HBM_BYTES_PER_S * 1e3
+    log(f"serving: {SERVE_SLOTS} requests, prompts of {sorted(lens.tolist())}"
+        f" tokens, greedy, max_len {SERVE_MAX_LEN}: {n_steps} decode steps "
+        f"in {serve_s:.3f} s ({n_steps / serve_s:.2f} steps/s, "
+        f"{1e3 * serve_s / n_steps:.3f} ms a step against the "
+        f"{floor_ms:.3f} ms it takes to read the weights once), {n_tok} "
+        f"tokens emitted ({n_tok / serve_s:.1f} tokens/s); {card}")
+    if n_steps != SERVE_NEW_TOKENS or any(
+            len(o) != SERVE_NEW_TOKENS - len(p) + 1 and (not o or o[-1] != 0)
+            for o, p in zip(outs, prompts)) or len(first) != SERVE_SLOTS:
+        raise AssertionError("the engine did not serve every request")
+
+    # ---- prefill of the same prompts against the decode steps ----
+    L = max(lens)
+    padded = torch.zeros((SERVE_SLOTS, L), dtype=torch.int32,
+                         device=LM_DEVICE)
+    for s, p in enumerate(prompts):
+        padded[s, :len(p)] = torch.tensor(p, dtype=torch.int32)
+    t0 = time.perf_counter()
+    pl, _ = transformer.forward(cfg, model, {"tokens": padded},
+                                use_kernel=True)
+    torch.cuda.synchronize()
+    stages["prefill of the 8 prompts (kernel path)"] = \
+        time.perf_counter() - t0
+    at = torch.tensor([len(p) - 1 for p in prompts], device=LM_DEVICE)
+    pre = pl[torch.arange(SERVE_SLOTS, device=LM_DEVICE), at]
+    dec = torch.stack([first[s] for s in range(SERVE_SLOTS)])
+    d = float((pre - dec).abs().max())
+    tok0 = torch.tensor([o[0] for o in outs], device=LM_DEVICE)
+    agree = pre.argmax(-1) == tok0
+    clear = top2_gap(pre) > 2 * d
+    log(f"prefill against decode at each prompt's last position: max abs "
+        f"logit difference {d:.3g} (bound {LM_LOGIT_TOL}); prefill argmax = "
+        f"first emitted token for {int(agree.sum())} of {SERVE_SLOTS} slots, "
+        f"for every one of the {int(clear.sum())} whose top-2 gap exceeds "
+        f"twice the difference: {bool(agree[clear].all())}")
+    if d > LM_LOGIT_TOL or not bool(agree[clear].all()):
+        raise AssertionError("prefill and decode disagree")
+    del pl, pre, dec
+
+    # ---- where decode's time goes: a short profiled run ----
+    eng = Engine(cfg, model, ServeConfig(max_len=SERVE_MAX_LEN),
+                 batch_slots=SERVE_SLOTS, device=LM_DEVICE)
+    for p in prompts:
+        eng.submit(p[:4])
+    profile(lambda: eng.run(max_new_tokens=32), "32 decode steps")
+    peak = torch.cuda.max_memory_allocated()
+    for name, t in stages.items():
+        log(f"[path 4] stage {name}: {t:.3f} s")
+    log(f"peak device memory (path 4): {peak / 1e9:.2f} GB; {card}")
+    del eng, model
+    torch.cuda.empty_cache()
+    return records
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--num-pairs", type=int, default=DEFAULT_PAIRS,
@@ -1040,6 +1320,7 @@ def main(argv=None) -> int:
     del path2
     small_reads = phase_small(api, mgsim, ExtensionPolicy)
     phase_small_stream(api, small_reads)
+    records += phase_lm(ops, card)
 
     log(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     log(card)

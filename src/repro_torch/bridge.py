@@ -11,6 +11,11 @@ so a stage of the port can start from the reference's output of the stage
 before it (k-mer sets, contigs, seed indexes, walk tables, links,
 scaffolds, scaffold sequences).  uint32 lanes become int32 tensors with
 the same bits (`core.types`) and come back as uint32 arrays.
+
+The LM's weights cross the same way: `lm_from_numpy(cfg, params)` builds
+the port's `Transformer` from the reference's `init_params` pytree (as
+numpy arrays, every layer parameter stacked on a leading `layers` axis),
+and `lm_to_numpy(model)` gives that pytree back.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ from repro_torch.core.alignment import SeedIndex
 from repro_torch.core.dht import HashTable
 from repro_torch.core.kmer_analysis import ExtensionPolicy
 from repro_torch.core.local_assembly import WalkTables
+from repro_torch.models import attention, ffn, transformer
 
 # Fields that hold uint32 lanes in the reference.
 LANE_FIELDS = frozenset({"hi", "lo", "hash", "slot_hi", "slot_lo"})
@@ -84,3 +90,47 @@ def plan_from_fields(fields: dict) -> AssemblyPlan:
     if fields.get("dataset_shape") is not None:
         fields["dataset_shape"] = tuple(fields["dataset_shape"])
     return AssemblyPlan(**fields)
+
+
+_ATTN = ("wq", "wk", "wv", "wo")
+_GLU = ("wi", "wg", "wo")
+
+
+def lm_from_numpy(cfg, params, device=None) -> transformer.Transformer:
+    """The port's dense model from the reference's params pytree; the
+    stacked `layers` axis is unstacked into one module a layer."""
+    def t(a):
+        return tensor(a, device)
+
+    stack = params["layers"]
+    dense = []
+    for i in range(cfg.n_layers):
+        attn = attention.Attention(*(t(stack["attn"][n][i]) for n in _ATTN))
+        mlp = (ffn.GLU(*(t(stack["mlp"][n][i]) for n in _GLU))
+               if "mlp" in stack else None)
+        dense.append(transformer.DenseLayer(attn, t(stack["ln1"][i]),
+                                            t(stack["ln2"][i]), mlp))
+    lm_head = t(params["lm_head"]) if "lm_head" in params else None
+    return transformer.Transformer(cfg, t(params["embed"]),
+                                   t(params["ln_f"]), dense, lm_head)
+
+
+def lm_to_numpy(model: transformer.Transformer) -> dict:
+    """The reference's params pytree (numpy) from the port's model."""
+    def a(p):
+        return p.detach().cpu().numpy()
+
+    def stacked(get):
+        return np.stack([a(get(lp)) for lp in model.layers])
+
+    out = {"embed": a(model.embed), "ln_f": a(model.ln_f), "layers": {
+        "attn": {n: stacked(lambda lp, n=n: getattr(lp.attn, n))
+                 for n in _ATTN},
+        "ln1": stacked(lambda lp: lp.ln1),
+        "ln2": stacked(lambda lp: lp.ln2)}}
+    if model.layers and model.layers[0].mlp is not None:
+        out["layers"]["mlp"] = {n: stacked(lambda lp, n=n: getattr(lp.mlp, n))
+                                for n in _GLU}
+    if model.lm_head is not None:
+        out["lm_head"] = a(model.lm_head)
+    return out

@@ -1,0 +1,7 @@
+"""Architecture configs of the port: its own copy of `repro.configs`.
+
+`base` holds the schema (`ArchConfig`, `ShapeConfig`, `SHAPES`); one
+module per ported architecture exports CONFIG (the published numbers) and
+SMOKE (a reduced config of the same family for CPU tests).  So far only
+llama3.2-3b is ported; `models.registry.get` resolves the ids.
+"""

@@ -34,7 +34,8 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 
 # Library -> {C function: argtypes}.  Pointers, and the stream, are c_void_p.
 SIGNATURES = {
@@ -58,6 +59,9 @@ SIGNATURES = {
     "sw_extend": {
         "sw_extend_max_band": [],
         "sw_extend_launch": [_P] * 4 + [_L] + [_I] * 6 + [_P] * 3 + [_P],
+    },
+    "flash_attention": {
+        "flash_attention_launch": [_P] * 4 + [_I] * 6 + [_F, _I, _P],
     },
 }
 

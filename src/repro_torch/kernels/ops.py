@@ -24,7 +24,7 @@ from . import build, ref
 from .ref import KmerLanes, MerWalkOut  # re-export  # noqa: F401
 
 KERNELS = ("kmer_extract", "dht_lookup", "dht_insert", "seed_probe",
-           "mer_walk", "sw_extend")
+           "mer_walk", "sw_extend", "flash_attention")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 
@@ -361,4 +361,51 @@ def sw_extend(query, target, qlen, tlen, *, band: int = 15, match: int = 1,
         _ptr(query), _ptr(target), _ptr(qlen), _ptr(tlen), B, QL, TL, band,
         match, mismatch, gap, *map(_ptr, out), _stream(dev))
     _launched("sw_extend", lib, err)
+    return out
+
+
+# dtype codes of the flash kernel's C interface
+_FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_FLASH_HEAD_DIMS = (16, 32, 64, 128, 256)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, scale=None,
+                    backend=None):
+    """Online-softmax attention for [B, H, S, D] q and [B, KH, S, D] k, v
+    (GQA: query head h reads KV head h // (H // KH)); any S >= 1.
+
+    fp32 or bf16 inputs of one dtype, fp32 accumulation, output in q's
+    dtype; scale defaults to 1/sqrt(D).  The kernel takes D in (16, 32,
+    64, 128, 256) and contiguous tensors.
+    """
+    if not _use_kernel(backend, q):
+        return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
+    if q.dim() != 4:
+        raise ValueError(f"flash_attention: q must be [B, H, S, D], got "
+                         f"{tuple(q.shape)}")
+    B, H, S, D = q.shape
+    KH = k.shape[1] if k.dim() == 4 else 0
+    if k.shape != (B, KH, S, D) or v.shape != k.shape or KH < 1 or H % KH:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}: need k, v "
+                         f"[B, KH, S, D] with H % KH == 0")
+    if D not in _FLASH_HEAD_DIMS or S < 1:
+        raise ValueError(f"flash_attention: the kernel takes head_dim in "
+                         f"{_FLASH_HEAD_DIMS} and S >= 1, got D={D}, S={S}")
+    if q.dtype not in _FLASH_DTYPES:
+        raise ValueError(f"flash_attention: the kernel takes float32 or "
+                         f"bfloat16, got {q.dtype}")
+    if B * H >= 1 << 31 or -(-S // 64) > 65535:
+        raise ValueError(f"flash_attention: grid of B*H={B * H} heads and "
+                         f"S={S} rows exceeds the launch limits")
+    dev = q.device
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check(name, t, q.dtype, dev)
+    scale = float(scale if scale is not None else 1.0 / (D ** 0.5))
+    out = torch.empty_like(q)
+    lib = build.library("flash_attention")
+    err = lib.flash_attention_launch(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(out), B, H, KH, S, D, int(causal),
+        scale, _FLASH_DTYPES[q.dtype], _stream(dev))
+    _launched("flash_attention", lib, err)
     return out

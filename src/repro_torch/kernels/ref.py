@@ -2,9 +2,9 @@
 
 Each `*_ref` has its kernel's interface and the reference's semantics op
 for op: `kmer_extract_ref`, `dht_lookup_ref`, `dht_insert_ref`,
-`seed_probe_ref`, `mer_walk_ref` and `sw_extend_ref` follow
-`repro/kernels/ref.py` and the jnp table rounds of `repro/core/dht.py`
-(`insert_jnp`, `lookup_jnp`).
+`seed_probe_ref`, `mer_walk_ref`, `sw_extend_ref` and
+`flash_attention_ref` follow `repro/kernels/ref.py` and the jnp table
+rounds of `repro/core/dht.py` (`insert_jnp`, `lookup_jnp`).
 `kernels.ops` serves them for CPU tensors, and `chip_smoke.py` holds each
 CUDA kernel against them on the card.  Lanes are int32 bit patterns,
 widened to int64 for arithmetic (`core.types`).
@@ -398,3 +398,25 @@ def sw_extend_ref(query, target, qlen, tlen, *, band: int = 15,
         bq = torch.where(upd, ii, bq)
         bt = torch.where(upd, rj, bt)
     return best, bq, bt
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, scale=None):
+    """Plain softmax attention, the oracle of the flash kernel.
+
+    q [B, H, S, D]; k, v [B, KH, S, D] with H % KH == 0 (query head h reads
+    KV head h // (H // KH)).  Products in the inputs' dtype, logits and
+    softmax in fp32, causal mask -1e30, output in q's dtype: the
+    reference's `flash_attention_ref` op for op.
+    """
+    B, H, S, D = q.shape
+    KH = k.shape[1]
+    if KH != H:
+        k = k.repeat_interleave(H // KH, dim=1)
+        v = v.repeat_interleave(H // KH, dim=1)
+    scale = scale if scale is not None else 1.0 / (D ** 0.5)
+    logits = torch.einsum("bhsd,bhtd->bhst", q, k).float() * scale
+    if causal:
+        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        logits = torch.where(mask, logits, -1e30)
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhst,bhtd->bhsd", p, v.float()).to(q.dtype)

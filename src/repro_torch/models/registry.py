@@ -1,0 +1,45 @@
+"""Architecture registry: arch id -> config and model functions.
+
+Mirrors `repro.models.registry` for the architectures the port has.  An
+id of the reference that the port lacks raises and names its ROADMAP
+item; an unknown id raises KeyError, as in the reference.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ArchConfig
+from . import transformer
+
+ARCHS = {
+    "llama3.2-3b": "repro_torch.configs.llama32_3b",
+}
+
+# the reference's other architectures, still to port
+UNPORTED = {
+    "zamba2-7b": "ROADMAP.md Queue 2 item 8 (the hybrid family, next)",
+    **dict.fromkeys(
+        ("whisper-large-v3", "qwen2-moe-a2.7b", "arctic-480b", "chatglm3-6b",
+         "gemma-7b", "starcoder2-3b", "internvl2-2b", "xlstm-125m"),
+        "ROADMAP.md Queue 1 item 8 (the rest of the LM substrate)"),
+}
+
+
+def get(arch_id: str, smoke: bool = False) -> ArchConfig:
+    if arch_id in UNPORTED:
+        raise NotImplementedError(
+            f"{arch_id} is not ported yet: {UNPORTED[arch_id]}")
+    mod = importlib.import_module(ARCHS[arch_id])
+    return mod.SMOKE if smoke else mod.CONFIG
+
+
+def model_fns(cfg: ArchConfig):
+    """(init_params, forward, init_decode_state, decode_step); `loss_fn`
+    waits for the training slice (ROADMAP.md Queue 1 item 8)."""
+    transformer.check_family(cfg)
+    return {
+        "init_params": transformer.init_params,
+        "forward": transformer.forward,
+        "init_decode_state": transformer.init_decode_state,
+        "decode_step": transformer.decode_step,
+    }

@@ -4,13 +4,19 @@ Each hand-written kernel (`repro_torch/kernels/csrc/`) is held to its plain
 PyTorch version (`repro_torch.kernels.ref`, itself held to the JAX
 reference by the other test_torch_* files) at small shapes with the edge
 cases of those files, plus the whole `contig_rounds`, `assemble` and
-`assemble_stream` on the card against the CPU run.  Skipped where no CUDA
-card is visible; on the card:
+`assemble_stream` on the card against the CPU run, and the SMOKE llama
+`forward(use_kernel=True)` and greedy `Engine` on the card against the CPU
+run.  Skipped where no CUDA card is visible; on the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerance: exact, every output lane.
+Tolerance: exact, every output lane, for the assembly kernels and paths;
+flash_attention 1e-5 abs/rel in fp32 (online softmax, sums in another
+order) and 5e-2 in bf16 (the plain version rounds its logits to bf16),
+the SMOKE LM's logits 1e-4 (cuBLAS against CPU matmuls), tokens exact.
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -24,6 +30,10 @@ from repro_torch.kernels import ops
 from repro_torch.stream import batches_from_readset
 
 pytestmark = pytest.mark.cuda
+
+# the kernels each assembly path launches: never the LM's flash_attention
+ASSEMBLY_KERNELS = ("kmer_extract", "dht_lookup", "dht_insert", "seed_probe",
+                    "mer_walk", "sw_extend")
 
 
 @pytest.fixture
@@ -140,8 +150,9 @@ def test_contig_rounds_on_card_equals_cpu(dev):
     got = Assembler(plan, Local(dev)).contig_rounds(reads)
     # without local assembly and gapped alignment, every kernel but the
     # walk and the gapped DP runs
-    assert all(ops.LAUNCHES[n] > 0 for n in ops.KERNELS
+    assert all(ops.LAUNCHES[n] > 0 for n in ASSEMBLY_KERNELS
                if n not in ("mer_walk", "sw_extend")), ops.LAUNCHES
+    assert ops.LAUNCHES["flash_attention"] == 0
     want = Assembler(plan, Local("cpu")).contig_rounds(reads)
     for g, w in zip(got[:3], want[:3]):
         g = g if isinstance(g, tuple) else (g,)
@@ -220,9 +231,10 @@ def test_assemble_on_card_equals_cpu(dev):
     ops.reset_launches()
     got = Assembler(plan, Local(dev)).assemble(reads)
     # Hamming verification (gapped_align=False): no gapped DP
-    assert all(ops.LAUNCHES[n] > 0 for n in ops.KERNELS
+    assert all(ops.LAUNCHES[n] > 0 for n in ASSEMBLY_KERNELS
                if n != "sw_extend"), ops.LAUNCHES
     assert ops.LAUNCHES["sw_extend"] == 0
+    assert ops.LAUNCHES["flash_attention"] == 0
     want = Assembler(plan, Local("cpu")).assemble(reads)
     for key in ("contigs", "alive", "alignments", "links", "suspended",
                 "components", "scaffolds", "scaffold_seqs"):
@@ -294,8 +306,9 @@ def test_assemble_stream_on_card_equals_cpu(dev):
     batches = batches_from_readset(reads, 256)
     ops.reset_launches()
     got = Assembler(plan, Local(dev)).assemble_stream(batches)
-    assert all(ops.LAUNCHES[n] > 0 for n in ops.KERNELS), ops.LAUNCHES
+    assert all(ops.LAUNCHES[n] > 0 for n in ASSEMBLY_KERNELS), ops.LAUNCHES
     assert ops.LAUNCHES["sw_extend"] == 3 * len(batches) * 2
+    assert ops.LAUNCHES["flash_attention"] == 0
     want = Assembler(plan, Local("cpu")).assemble_stream(batches)
     for key in ("contigs", "alive", "alignments", "links", "suspended",
                 "components", "scaffolds", "scaffold_seqs"):
@@ -313,3 +326,89 @@ def test_assemble_stream_on_card_equals_cpu(dev):
         assert torch.equal(getattr(g["scaffold_seqs"], f).cpu(),
                            getattr(w["scaffold_seqs"], f)), f
     assert g["stats"] == w["stats"]
+
+
+# ---------- the LM serving path: flash_attention and the SMOKE llama ----------
+
+FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
+
+
+def _qkv(seed, B, H, KH, S, D, dtype, dev):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=dev).to(dtype)
+            for shape in ((B, H, S, D), (B, KH, S, D), (B, KH, S, D))]
+
+
+@pytest.mark.parametrize("H,KH", [(4, 4), (6, 2)])
+@pytest.mark.parametrize("S", [1, 100, 256, 1000])
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_equals_plain(dev, causal, dtype, D, S, H, KH):
+    q, k, v = _qkv(S * D + H, 2, H, KH, S, D, dtype, dev)
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    want = ops.flash_attention(q, k, v, causal=causal, backend="torch")
+    assert ops.LAUNCHES["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_kernel_refuses_what_it_does_not_take(dev):
+    q, k, v = _qkv(0, 1, 4, 2, 64, 64, torch.float32, dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(q.transpose(2, 3), k, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(q, k.half(), v)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ops.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.flash_attention(*_qkv(0, 1, 4, 2, 64, 48, torch.float32, dev))
+    with pytest.raises(ValueError, match="H % KH"):
+        ops.flash_attention(*_qkv(0, 1, 4, 3, 64, 64, torch.float32, dev))
+
+
+@pytest.fixture
+def smoke_lm(dev):
+    from repro_torch.models import registry, transformer
+    cfg = registry.get("llama3.2-3b", smoke=True)
+    g = torch.Generator()
+    g.manual_seed(0)
+    cpu = transformer.init_params(cfg, g, device="cpu")
+    return cfg, cpu, copy.deepcopy(cpu).to(dev)
+
+
+def test_lm_forward_on_card_equals_cpu(smoke_lm, dev):
+    from repro_torch.models import transformer
+    cfg, cpu, card = smoke_lm
+    rng = np.random.default_rng(0)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 200)).astype(
+        np.int32))
+    ops.reset_launches()
+    got, _ = transformer.forward(cfg, card, {"tokens": tok.to(dev)},
+                                 use_kernel=True)
+    assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
+    plain, _ = transformer.forward(cfg, card, {"tokens": tok.to(dev)})
+    assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
+    want, _ = transformer.forward(cfg, cpu, {"tokens": tok}, use_kernel=True)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(plain.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_lm_greedy_engine_on_card_equals_cpu(smoke_lm, dev):
+    from repro_torch.models.decode_engine import Engine, ServeConfig
+    cfg, cpu, card = smoke_lm
+    outs = []
+    for model, where in ((card, dev), (cpu, "cpu")):
+        eng = Engine(cfg, model, ServeConfig(max_len=64), batch_slots=3,
+                     device=where)
+        for p in ([5, 6, 7], [11, 12], list(range(20, 40))):
+            eng.submit(p)
+        ops.reset_launches()
+        outs.append(eng.run(max_new_tokens=40))
+        assert ops.LAUNCHES["flash_attention"] == 0  # decode: no prefill
+    assert outs[0] == outs[1]
+    assert all(len(o) > 0 for o in outs[0])
