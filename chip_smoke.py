@@ -4,15 +4,16 @@
 
 Drives the port's three assembly paths on one virome-like community: 24
 genomes of 10-30 kbp (4 of them 1%-divergent strains), 150k reads of
-2 x 150 bp at ~45x mean coverage, and its LM serving path (path 4) on
-llama3.2-3b at full width with random fp32 weights.  The community is sized so the first
+2 x 150 bp at ~45x mean coverage, and its two LM serving paths at full
+width with random fp32 weights: llama3.2-3b (path 4) and the hybrid
+zamba2-7b (path 5).  The community is sized so the first
 round's traversal fits the contig_cap of 4096 that the reference's
 (contig, mer) tag space allows with the (17, 21, 25) walk ladder: with
 40 genomes (+4 strains) and 240k reads that traversal finds 5893 chains.
 Steps:
 
   1. card name and power limit (nvidia-smi);
-  2. build the seven CUDA kernels' libraries from
+  2. build the eight CUDA kernels' libraries from
      src/repro_torch/kernels/csrc (one nvcc each, in parallel);
   3. make the reads (host numpy, timed apart);
   4. path 1, Algorithm 1: `contig_rounds` with run_local_assembly=False,
@@ -60,19 +61,41 @@ Steps:
      bf16, timed beside SDPA; the decode `Engine` serving 8 seeded prompts
      of 16-128 tokens for 160 greedy steps (steps/s, tokens/s), each
      slot's first token's logits against a prefill of the 8 prompts; 32
-     decode steps under torch.profiler; stage times and peak memory.
+     decode steps under torch.profiler; stage times and peak memory;
+  9. path 5, the hybrid serving path: zamba2-7b (81 Mamba-2 layers in 13
+     groups of 6 and a tail of 3, d_model 3584, 112 SSM heads of
+     P = N = 64, one weight-tied shared attention + GLU block with 32
+     heads of 112 after every group; 10,872,216,432 parameters, the
+     reference's init_params leaves) built on the card from a seeded
+     torch.Generator; `forward(use_kernel=True)` on 2 x 4096 seeded
+     tokens, counts reset just before and read just after: ssd_scan once
+     a Mamba-2 layer (81), flash_attention once a group (13), no other
+     kernel; the plain path against it (max abs logit difference <= 5e-3,
+     argmax); once more under torch.profiler, recording the last calls;
+     ssd_scan against its plain version at that call (|d| <= 2e-4 +
+     2e-4 |plain|) and flash_attention at D = 112 in fp32 and bf16
+     (SDPA as library_ms), timed; the Engine serving 8 seeded prompts of
+     16-128 tokens for up to 160 greedy steps, prefill against decode
+     (<= 5e-3), 32 profiled decode steps; a float64 witness: the first 3
+     groups (18 Mamba-2 layers, 3 shared-block calls) on the prefill's
+     tokens, the kernel and plain paths in fp32 against the plain path in
+     float64 (built from the same layers once the rest of the model is
+     freed), the kernel path within 2x the plain path's difference;
+     stage times and peak memory.
 
 Any failure raises (non-zero exit, no result).  The line before the last
 is one JSON object with a record per kernel, path and call site (`path`
-names the main path whose shapes and launch counts it carries; the two
-flash_attention rows, fp32 and bf16, both carry the kernel's launches on
-path 4, which runs fp32); the last line is {"ok": true, "device": {...}}.
+names the main path whose shapes and launch counts it carries; the
+flash_attention rows of a path, fp32 and bf16, both carry the kernel's
+launches on that path, which runs fp32); the last line is {"ok": true,
+"device": {...}}.
 Without a CUDA card it exits non-zero.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import shutil
@@ -103,6 +126,8 @@ KERNELS = {
                   "src/repro/kernels/sw_extend.py:101"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:68"),
+    "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:62"),
 }
 # the kernels each main path launches; every other kernel must launch 0
 # times on that path
@@ -110,6 +135,7 @@ PATH1_KERNELS = ("kmer_extract", "dht_lookup", "dht_insert", "seed_probe")
 PATH2_KERNELS = PATH1_KERNELS + ("mer_walk",)
 PATH3_KERNELS = PATH2_KERNELS + ("sw_extend",)
 PATH4_KERNELS = ("flash_attention",)
+PATH5_KERNELS = ("ssd_scan", "flash_attention")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 SCALAR_OPS_PER_S = 67e12    # H100 SXM 32-bit rate outside the tensor cores
 TENSOR_BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
@@ -130,6 +156,20 @@ PROMPT_LENS = (16, 128)
 # shapes) over 28 layers; the logits of the random model have std ~1
 LM_LOGIT_TOL = 1e-3
 FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
+# path 5, the hybrid family
+HYBRID_ARCH = "zamba2-7b"
+HYBRID_SEED = 17
+# the leaves of the reference's init_params at full width (its analytic
+# param_count() says 6,770,491,392: it undercounts the B/C projections)
+HYBRID_PARAMS = 10_872_216_432
+# fp32 logits of two fp32 paths (other summation orders in the scan, the
+# attention and cuBLAS) through 81 Mamba-2 layers and 13 shared blocks,
+# 94 residual blocks in all; the logits of the random model have std ~1
+HYBRID_LOGIT_TOL = 5e-3
+# the reference's own Pallas-against-oracle tolerance for the scan
+# (tests/test_kernels.py): chunked sums in another order
+SSD_TOL = 2e-4
+WITNESS_GROUPS = 3  # the float64 witness runs the first 3 groups
 
 
 def log(*a):
@@ -1011,7 +1051,7 @@ def phase_small_stream(api, reads):
         "returned the same result")
 
 
-def flash_row(row, ops, q, k, v, launches, card):
+def flash_row(row, ops, q, k, v, launches, card, path="lm_prefill"):
     """flash_attention against its plain version at the path's call:
     within the tests' tolerance (|d| <= tol + tol |plain|), timed, with the
     SDPA call of the same shape and dtype as the library yardstick."""
@@ -1052,12 +1092,123 @@ def flash_row(row, ops, q, k, v, launches, card):
         name=row, route="cuda", source=source, replaces=replaces,
         launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
-        path="lm_prefill", dtype=str(q.dtype).replace("torch.", ""))
+        path=path, dtype=str(q.dtype).replace("torch.", ""))
 
 
 def top2_gap(logits):
     top = logits.topk(2, dim=-1).values
     return top[..., 0] - top[..., 1]
+
+
+def compare_logits(got, want, tol, what):
+    """Max abs difference within tol, and the argmax equal at every
+    position whose top-2 gap exceeds twice the difference."""
+    diff = float((got - want).abs().max())
+    same = got.argmax(-1) == want.argmax(-1)
+    clear = top2_gap(want) > 2 * diff
+    log(f"{what}: max abs logit difference {diff:.3g} (bound {tol}; logits "
+        f"std {float(want.std()):.3f}); argmax agrees at "
+        f"{int(same.sum())} of {same.numel()} positions, at every one of the "
+        f"{int(clear.sum())} whose top-2 gap exceeds twice the difference: "
+        f"{bool(same[clear].all())}")
+    if diff > tol or not bool(same[clear].all()):
+        raise AssertionError(f"{what}: the two disagree")
+    return diff
+
+
+def serve_and_check(cfg, model, ops, card, stages, weights, seed, path,
+                    tol):
+    """The decode Engine serves SERVE_SLOTS seeded prompts of PROMPT_LENS
+    tokens for SERVE_NEW_TOKENS greedy steps (steps/s, tokens/s, ms a step
+    against the weight-read floor), launching no kernel; then a prefill of
+    the same prompts through the kernel path against each slot's first
+    decode logits (max abs difference <= tol; the argmax is the first
+    emitted token wherever the top-2 gap exceeds twice the difference);
+    then 32 decode steps under torch.profiler.  The engine must run every
+    one of the steps."""
+    from repro_torch.models import transformer
+    from repro_torch.models.decode_engine import Engine, ServeConfig
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, size=SERVE_SLOTS)
+    lens[:2] = PROMPT_LENS  # both ends of the range
+    prompts = [rng.integers(1, cfg.vocab, size=int(n)).tolist()
+               for n in lens]
+    eng = Engine(cfg, model, ServeConfig(max_len=SERVE_MAX_LEN,
+                                         temperature=0.0),
+                 batch_slots=SERVE_SLOTS, device=LM_DEVICE)
+    for p in prompts:
+        eng.submit(p)
+    first = {}  # slot -> logits of the step that emitted its first token
+    step = eng._step
+
+    def recording_step(state, toks):
+        out, state = step(state, toks)
+        t = state["pos"] - 1
+        for s, p in enumerate(prompts):
+            if len(p) - 1 == t:
+                first[s] = out[s, -1].clone()
+        return out, state
+
+    eng._step = recording_step
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    outs = eng.run(max_new_tokens=SERVE_NEW_TOKENS)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    stages["serve (Engine.run)"] = serve_s
+    if any(ops.LAUNCHES.values()):
+        raise AssertionError(f"decode launched kernels: {ops.LAUNCHES}")
+    n_steps = eng.state["pos"]
+    n_tok = sum(len(o) for o in outs)
+    floor_ms = weights / HBM_BYTES_PER_S * 1e3
+    log(f"serving: {SERVE_SLOTS} requests, prompts of {sorted(lens.tolist())}"
+        f" tokens, greedy, max_len {SERVE_MAX_LEN}: {n_steps} decode steps "
+        f"in {serve_s:.3f} s ({n_steps / serve_s:.2f} steps/s, "
+        f"{1e3 * serve_s / n_steps:.3f} ms a step against the "
+        f"{floor_ms:.3f} ms it takes to read the weights once), {n_tok} "
+        f"tokens emitted ({n_tok / serve_s:.1f} tokens/s); {card}")
+    ended = [len(o) == SERVE_NEW_TOKENS - len(p) + 1 or (o and o[-1] == 0)
+             for o, p in zip(outs, prompts)]
+    if (n_steps != SERVE_NEW_TOKENS or not all(ended)
+            or len(first) != SERVE_SLOTS):
+        raise AssertionError("the engine did not serve every request")
+
+    # ---- prefill of the same prompts against the decode steps ----
+    L = max(lens)
+    padded = torch.zeros((SERVE_SLOTS, L), dtype=torch.int32,
+                         device=LM_DEVICE)
+    for s, p in enumerate(prompts):
+        padded[s, :len(p)] = torch.tensor(p, dtype=torch.int32)
+    t0 = time.perf_counter()
+    pl, _ = transformer.forward(cfg, model, {"tokens": padded},
+                                use_kernel=True)
+    torch.cuda.synchronize()
+    stages["prefill of the 8 prompts (kernel path)"] = \
+        time.perf_counter() - t0
+    at = torch.tensor([len(p) - 1 for p in prompts], device=LM_DEVICE)
+    pre = pl[torch.arange(SERVE_SLOTS, device=LM_DEVICE), at]
+    dec = torch.stack([first[s] for s in range(SERVE_SLOTS)])
+    d = float((pre - dec).abs().max())
+    tok0 = torch.tensor([o[0] for o in outs], device=LM_DEVICE)
+    agree = pre.argmax(-1) == tok0
+    clear = top2_gap(pre) > 2 * d
+    log(f"prefill against decode at each prompt's last position: max abs "
+        f"logit difference {d:.3g} (bound {tol}); prefill argmax = "
+        f"first emitted token for {int(agree.sum())} of {SERVE_SLOTS} slots, "
+        f"for every one of the {int(clear.sum())} whose top-2 gap exceeds "
+        f"twice the difference: {bool(agree[clear].all())}")
+    if d > tol or not bool(agree[clear].all()):
+        raise AssertionError(f"{path}: prefill and decode disagree")
+    del pl, pre, dec
+
+    # ---- where decode's time goes: a short profiled run ----
+    eng = Engine(cfg, model, ServeConfig(max_len=SERVE_MAX_LEN),
+                 batch_slots=SERVE_SLOTS, device=LM_DEVICE)
+    for p in prompts:
+        eng.submit(p[:4])
+    profile(lambda: eng.run(max_new_tokens=32), "32 decode steps")
 
 
 def phase_lm(ops, card):
@@ -1066,7 +1217,6 @@ def phase_lm(ops, card):
     rows, and the decode Engine serving 8 requests, cross-checked against
     the prefill.  Returns the JSON records of the kernel's two rows."""
     from repro_torch.models import registry, transformer
-    from repro_torch.models.decode_engine import Engine, ServeConfig
 
     # fp32 products in full fp32: the kernel path is held against the
     # plain path, and TF32 would keep ~3 digits
@@ -1130,19 +1280,9 @@ def phase_lm(ops, card):
     stages["prefill (plain path)"] = time.perf_counter() - t0
     if any(ops.LAUNCHES.values()):
         raise AssertionError(f"plain path launched kernels: {ops.LAUNCHES}")
-    diff = float((logits - plain).abs().max())
-    same = logits.argmax(-1) == plain.argmax(-1)
-    clear = top2_gap(plain) > 2 * diff
-    log(f"prefill, kernel path against plain path: max abs logit difference "
-        f"{diff:.3g} (bound {LM_LOGIT_TOL}; logits std "
-        f"{float(plain.std()):.3f}); argmax agrees at "
-        f"{int(same.sum())} of {same.numel()} positions, at every one of the "
-        f"{int(clear.sum())} whose top-2 gap exceeds twice the difference: "
-        f"{bool(same[clear].all())}")
-    if diff > LM_LOGIT_TOL or not bool(same[clear].all()):
-        raise AssertionError("prefill: the kernel path disagrees with the "
-                             "plain path")
-    del logits, plain, same, clear
+    compare_logits(logits, plain, LM_LOGIT_TOL,
+                   "prefill, kernel path against plain path")
+    del logits, plain
 
     # ---- where the time goes, and the path's call of the kernel ----
     calls = []
@@ -1167,91 +1307,210 @@ def phase_lm(ops, card):
                              launches["flash_attention"], card))
     del calls, q, k, v
 
-    # ---- serving: the decode Engine answers 8 requests ----
-    rng = np.random.default_rng(LM_SEED)
-    lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, size=SERVE_SLOTS)
-    lens[:2] = PROMPT_LENS  # both ends of the range
-    prompts = [rng.integers(1, cfg.vocab, size=int(n)).tolist()
-               for n in lens]
-    eng = Engine(cfg, model, ServeConfig(max_len=SERVE_MAX_LEN,
-                                         temperature=0.0),
-                 batch_slots=SERVE_SLOTS, device=LM_DEVICE)
-    for p in prompts:
-        eng.submit(p)
-    first = {}  # slot -> logits of the step that emitted its first token
-    step = eng._step
-
-    def recording_step(state, toks):
-        out, state = step(state, toks)
-        t = state["pos"] - 1
-        for s, p in enumerate(prompts):
-            if len(p) - 1 == t:
-                first[s] = out[s, -1].clone()
-        return out, state
-
-    eng._step = recording_step
-    torch.cuda.synchronize()
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    outs = eng.run(max_new_tokens=SERVE_NEW_TOKENS)
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
-    stages["serve (Engine.run)"] = serve_s
-    if any(ops.LAUNCHES.values()):
-        raise AssertionError(f"decode launched kernels: {ops.LAUNCHES}")
-    n_steps = eng.state["pos"]
-    n_tok = sum(len(o) for o in outs)
-    floor_ms = weights / HBM_BYTES_PER_S * 1e3
-    log(f"serving: {SERVE_SLOTS} requests, prompts of {sorted(lens.tolist())}"
-        f" tokens, greedy, max_len {SERVE_MAX_LEN}: {n_steps} decode steps "
-        f"in {serve_s:.3f} s ({n_steps / serve_s:.2f} steps/s, "
-        f"{1e3 * serve_s / n_steps:.3f} ms a step against the "
-        f"{floor_ms:.3f} ms it takes to read the weights once), {n_tok} "
-        f"tokens emitted ({n_tok / serve_s:.1f} tokens/s); {card}")
-    if n_steps != SERVE_NEW_TOKENS or any(
-            len(o) != SERVE_NEW_TOKENS - len(p) + 1 and (not o or o[-1] != 0)
-            for o, p in zip(outs, prompts)) or len(first) != SERVE_SLOTS:
-        raise AssertionError("the engine did not serve every request")
-
-    # ---- prefill of the same prompts against the decode steps ----
-    L = max(lens)
-    padded = torch.zeros((SERVE_SLOTS, L), dtype=torch.int32,
-                         device=LM_DEVICE)
-    for s, p in enumerate(prompts):
-        padded[s, :len(p)] = torch.tensor(p, dtype=torch.int32)
-    t0 = time.perf_counter()
-    pl, _ = transformer.forward(cfg, model, {"tokens": padded},
-                                use_kernel=True)
-    torch.cuda.synchronize()
-    stages["prefill of the 8 prompts (kernel path)"] = \
-        time.perf_counter() - t0
-    at = torch.tensor([len(p) - 1 for p in prompts], device=LM_DEVICE)
-    pre = pl[torch.arange(SERVE_SLOTS, device=LM_DEVICE), at]
-    dec = torch.stack([first[s] for s in range(SERVE_SLOTS)])
-    d = float((pre - dec).abs().max())
-    tok0 = torch.tensor([o[0] for o in outs], device=LM_DEVICE)
-    agree = pre.argmax(-1) == tok0
-    clear = top2_gap(pre) > 2 * d
-    log(f"prefill against decode at each prompt's last position: max abs "
-        f"logit difference {d:.3g} (bound {LM_LOGIT_TOL}); prefill argmax = "
-        f"first emitted token for {int(agree.sum())} of {SERVE_SLOTS} slots, "
-        f"for every one of the {int(clear.sum())} whose top-2 gap exceeds "
-        f"twice the difference: {bool(agree[clear].all())}")
-    if d > LM_LOGIT_TOL or not bool(agree[clear].all()):
-        raise AssertionError("prefill and decode disagree")
-    del pl, pre, dec
-
-    # ---- where decode's time goes: a short profiled run ----
-    eng = Engine(cfg, model, ServeConfig(max_len=SERVE_MAX_LEN),
-                 batch_slots=SERVE_SLOTS, device=LM_DEVICE)
-    for p in prompts:
-        eng.submit(p[:4])
-    profile(lambda: eng.run(max_new_tokens=32), "32 decode steps")
+    serve_and_check(cfg, model, ops, card, stages, weights, LM_SEED,
+                    "path 4", LM_LOGIT_TOL)
     peak = torch.cuda.max_memory_allocated()
     for name, t in stages.items():
         log(f"[path 4] stage {name}: {t:.3f} s")
     log(f"peak device memory (path 4): {peak / 1e9:.2f} GB; {card}")
-    del eng, model
+    del model
+    torch.cuda.empty_cache()
+    return records
+
+
+def ssd_row(ops, x, a, b, c, launches, card):
+    """ssd_scan against its plain version at the path's call: within
+    |d| <= SSD_TOL + SSD_TOL |plain|, timed; no single PyTorch call
+    computes the scan, so there is no library yardstick."""
+    source, replaces = KERNELS["ssd_scan"]
+    got = ops.ssd_scan(x, a, b, c)
+    want = ops.ssd_scan(x, a, b, c, backend="torch")
+    d = (got - want).abs()
+    err = float(d.max())
+    used = float((d / (SSD_TOL + SSD_TOL * want.abs())).max())
+    top = float(want.abs().max())
+    if used > 1 or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"ssd_scan: kernel != plain version (max abs "
+                             f"err {err}, tolerance {SSD_TOL})")
+    del got, want, d
+    ms = median_ms(lambda: ops.ssd_scan(x, a, b, c))
+    plain_ms = median_ms(lambda: ops.ssd_scan(x, a, b, c, backend="torch"))
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    T = min(128, S)
+    nc = S // T
+    pairs = T * (T + 1) // 2  # causal (t, s) pairs of a chunk
+    # C B^T and G x in every chunk; C . state and the state update in all
+    # but one (the state is zero in the first chunk, and only y is output)
+    flops = B * H * (nc * (2 * N + 2 * P) * pairs + (nc - 1) * 4 * T * P * N)
+    nbytes = 4 * (2 * x.numel() + a.numel() + b.numel() + c.numel())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / SCALAR_OPS_PER_S * 1e3
+    b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                               "operations")
+    log(f"ssd_scan: x {list(x.shape)}, a {list(a.shape)}, b/c "
+        f"{list(b.shape)}, fp32, chunk {T}; max abs err {err:.3g} against "
+        f"plain (|plain| <= {top:.1f}), {used:.3f} of the tolerance |d| <= "
+        f"{SSD_TOL} + {SSD_TOL} |plain|; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}: "
+        f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.0f} MB); {card}")
+    return dict(
+        name="ssd_scan", route="cuda", source=source, replaces=replaces,
+        launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        path="hybrid_prefill", dtype="float32")
+
+
+def phase_hybrid(ops, card):
+    """Path 5: zamba2-7b at full width, random fp32 weights; the prefill
+    forward through ssd_scan and flash_attention (D = 112) against the
+    plain path, the kernel rows, the decode Engine serving 8 requests
+    cross-checked against the prefill, and a float64 witness on the first
+    WITNESS_GROUPS groups.  Returns the JSON records of its three rows."""
+    from repro_torch.models import registry, transformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    cfg = registry.get(HYBRID_ARCH)
+    n_groups, rem = divmod(cfg.n_layers, cfg.attn_every)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held0 = torch.cuda.memory_allocated()
+    stages = {}
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=LM_DEVICE)
+    gen.manual_seed(HYBRID_SEED)
+    model = transformer.init_params(cfg, gen, device=LM_DEVICE)
+    torch.cuda.synchronize()
+    stages["init_params"] = time.perf_counter() - t0
+    n = sum(p.numel() for p in model.parameters())
+    weights = torch.cuda.memory_allocated() - held0
+    log(f"path 5 model: {cfg.name}, {cfg.n_layers} Mamba-2 layers in "
+        f"{n_groups} groups of {cfg.attn_every} and a tail of {rem}, "
+        f"d_model {cfg.d_model}, {2 * cfg.d_model // cfg.ssm_head_dim} SSM "
+        f"heads of P = {cfg.ssm_head_dim}, N = {cfg.ssm_state}; one shared "
+        f"block ({cfg.n_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}) after "
+        f"every group; vocab {cfg.vocab}, untied; {n} parameters (the "
+        f"reference's init_params leaves: {HYBRID_PARAMS}; its "
+        f"param_count(): {int(cfg.param_count())}), {weights / 1e9:.2f} GB "
+        f"fp32 on the card, random from torch.Generator seed {HYBRID_SEED}, "
+        f"built in {stages['init_params']:.2f} s")
+    if n != HYBRID_PARAMS or next(model.parameters()).device.type != \
+            LM_DEVICE:
+        raise AssertionError("the model is not zamba2-7b at full width on "
+                             "the card")
+
+    # ---- prefill: the kernel path (clean), then the plain path ----
+    log(f"CUT: prefill of B={PREFILL_B} x S={PREFILL_S} tokens "
+        f"({PREFILL_S // 128} chunks of 128) instead of prefill_32k's "
+        f"32 x 32768: in fp32 that shape would take most of the run's time "
+        f"limit")
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
+                           generator=gen, device=LM_DEVICE, dtype=torch.int32)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    logits, aux = transformer.forward(cfg, model, {"tokens": tokens},
+                                      use_kernel=True)
+    torch.cuda.synchronize()
+    stages["prefill (kernel path)"] = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    log(f"launches in the prefill forward: {launches}")
+    check_path_kernels(launches, PATH5_KERNELS, "path 5")
+    if launches["ssd_scan"] != cfg.n_layers or \
+            launches["flash_attention"] != n_groups:
+        raise AssertionError(f"launches {launches}: expected ssd_scan once "
+                             f"a Mamba-2 layer ({cfg.n_layers}) and "
+                             f"flash_attention once a group ({n_groups})")
+    if logits.shape != (PREFILL_B, PREFILL_S, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()) or float(aux) != 0.0:
+        raise AssertionError("prefill logits have the wrong shape or are "
+                             "not finite")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    plain, _ = transformer.forward(cfg, model, {"tokens": tokens})
+    torch.cuda.synchronize()
+    stages["prefill (plain path)"] = time.perf_counter() - t0
+    if any(ops.LAUNCHES.values()):
+        raise AssertionError(f"plain path launched kernels: {ops.LAUNCHES}")
+    compare_logits(logits, plain, HYBRID_LOGIT_TOL,
+                   "prefill, kernel path against plain path")
+    del logits, plain
+
+    # ---- where the time goes, and the path's calls of the kernels ----
+    calls = {}
+    orig = {name: getattr(ops, name) for name in PATH5_KERNELS}
+
+    def recorder(name):
+        def call(*args, **kw):
+            calls[name] = args
+            return orig[name](*args, **kw)
+        return call
+
+    for name in PATH5_KERNELS:
+        setattr(ops, name, recorder(name))
+    try:
+        profile(lambda: transformer.forward(cfg, model, {"tokens": tokens},
+                                            use_kernel=True),
+                "prefill forward, kernel path")
+    finally:
+        for name, fn in orig.items():
+            setattr(ops, name, fn)
+    records = [ssd_row(ops, *calls["ssd_scan"], launches["ssd_scan"], card)]
+    q, k, v = calls["flash_attention"]  # the last group's call
+    records.append(flash_row("flash_attention_d112", ops, q, k, v,
+                             launches["flash_attention"], card,
+                             "hybrid_prefill"))
+    records.append(flash_row("flash_attention_d112_bf16", ops, q.bfloat16(),
+                             k.bfloat16(), v.bfloat16(),
+                             launches["flash_attention"], card,
+                             "hybrid_prefill"))
+    del calls, q, k, v
+
+    # ---- serving, prefill against decode, a profiled decode ----
+    serve_and_check(cfg, model, ops, card, stages, weights, HYBRID_SEED,
+                    "path 5", HYBRID_LOGIT_TOL)
+    peak = torch.cuda.max_memory_allocated()
+
+    # ---- the float64 witness on the first WITNESS_GROUPS groups ----
+    t0 = time.perf_counter()
+    cut_cfg = dataclasses.replace(cfg, n_layers=WITNESS_GROUPS *
+                                  cfg.attn_every)
+    cut = transformer.HybridLM(
+        cut_cfg, model.embed.data, model.ln_f.data,
+        [list(g) for g in model.mamba[:WITNESS_GROUPS]], [], model.shared,
+        model.lm_head.data)
+    batch = {"tokens": tokens}
+    kern, _ = transformer.forward(cut_cfg, cut, batch, use_kernel=True)
+    plain, _ = transformer.forward(cut_cfg, cut, batch)
+    del model  # the cut shares its layers; the rest of the model is freed
+    gc.collect()  # and nothing in a reference cycle still holds it
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cut.to(torch.float64)
+    exact, _ = transformer.forward(cut_cfg, cut, batch)
+    torch.cuda.synchronize()
+    stages["float64 witness (cut stack, 3 forwards)"] = \
+        time.perf_counter() - t0
+    k_err = float((kern.double() - exact).abs().max())
+    p_err = float((plain.double() - exact).abs().max())
+    kp = float((kern - plain).abs().max())
+    log(f"float64 witness, the first {cut_cfg.n_layers} Mamba-2 layers and "
+        f"{WITNESS_GROUPS} shared blocks on the prefill's tokens (logits "
+        f"std {float(exact.std()):.3f}): kernel path against plain path "
+        f"{kp:.3g}; against the plain path in float64: kernel path "
+        f"{k_err:.3g}, plain path {p_err:.3g} (bound on the kernel path: "
+        f"2 x {p_err:.3g})")
+    if not k_err <= 2 * p_err:
+        raise AssertionError("the kernel path strays further from float64 "
+                             "than twice the plain path's rounding")
+    for name, t in stages.items():
+        log(f"[path 5] stage {name}: {t:.3f} s")
+    log(f"peak device memory (path 5, before the witness): {peak / 1e9:.2f} "
+        f"GB; {card}")
+    del cut, kern, plain, exact, tokens
     torch.cuda.empty_cache()
     return records
 
@@ -1321,6 +1580,7 @@ def main(argv=None) -> int:
     small_reads = phase_small(api, mgsim, ExtensionPolicy)
     phase_small_stream(api, small_reads)
     records += phase_lm(ops, card)
+    records += phase_hybrid(ops, card)
 
     log(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -13,9 +13,11 @@ scaffolds, scaffold sequences).  uint32 lanes become int32 tensors with
 the same bits (`core.types`) and come back as uint32 arrays.
 
 The LM's weights cross the same way: `lm_from_numpy(cfg, params)` builds
-the port's `Transformer` from the reference's `init_params` pytree (as
-numpy arrays, every layer parameter stacked on a leading `layers` axis),
-and `lm_to_numpy(model)` gives that pytree back.
+the port's model from the reference's `init_params` pytree as numpy
+arrays (dense: every layer parameter stacked on a leading `layers` axis;
+hybrid: `mamba` leaves stacked [groups, attn_every, ...], `mamba_tail`
+[rest, ...] and one `shared` block), and `lm_to_numpy(model)` gives that
+pytree back.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ from repro_torch.core.alignment import SeedIndex
 from repro_torch.core.dht import HashTable
 from repro_torch.core.kmer_analysis import ExtensionPolicy
 from repro_torch.core.local_assembly import WalkTables
-from repro_torch.models import attention, ffn, transformer
+from repro_torch.models import attention, ffn, ssm, transformer
 
 # Fields that hold uint32 lanes in the reference.
 LANE_FIELDS = frozenset({"hi", "lo", "hash", "slot_hi", "slot_lo"})
@@ -96,41 +98,84 @@ _ATTN = ("wq", "wk", "wv", "wo")
 _GLU = ("wi", "wg", "wo")
 
 
-def lm_from_numpy(cfg, params, device=None) -> transformer.Transformer:
-    """The port's dense model from the reference's params pytree; the
-    stacked `layers` axis is unstacked into one module a layer."""
+def _index(tree, idx):
+    """One layer's subtree of a stacked pytree."""
+    if isinstance(tree, dict):
+        return {k: _index(v, idx) for k, v in tree.items()}
+    return tree[idx]
+
+
+def _stack(trees):
+    """Stack the subtrees of a list of layers on a new leading axis."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def _dense_layer(p, t) -> transformer.DenseLayer:
+    attn = attention.Attention(*(t(p["attn"][n]) for n in _ATTN))
+    mlp = ffn.GLU(*(t(p["mlp"][n]) for n in _GLU)) if "mlp" in p else None
+    return transformer.DenseLayer(attn, t(p["ln1"]), t(p["ln2"]), mlp)
+
+
+def _mamba_layer(p, t) -> transformer.MambaLayer:
+    return transformer.MambaLayer(
+        ssm.Mamba2(*(t(p["mixer"][n]) for n in ssm.MAMBA2_PARAMS)),
+        t(p["ln"]))
+
+
+def _numpy(p):
+    return p.detach().cpu().numpy()
+
+
+def _dense_tree(lp: transformer.DenseLayer) -> dict:
+    out = {"attn": {n: _numpy(getattr(lp.attn, n)) for n in _ATTN},
+           "ln1": _numpy(lp.ln1), "ln2": _numpy(lp.ln2)}
+    if lp.mlp is not None:
+        out["mlp"] = {n: _numpy(getattr(lp.mlp, n)) for n in _GLU}
+    return out
+
+
+def _mamba_tree(lp: transformer.MambaLayer) -> dict:
+    return {"mixer": {n: _numpy(getattr(lp.mixer, n))
+                      for n in ssm.MAMBA2_PARAMS}, "ln": _numpy(lp.ln)}
+
+
+def lm_from_numpy(cfg, params, device=None):
+    """The port's model (a `Transformer`, or a `HybridLM` for the hybrid
+    family) from the reference's params pytree; stacked layer axes are
+    unstacked into one module a layer."""
     def t(a):
         return tensor(a, device)
 
-    stack = params["layers"]
-    dense = []
-    for i in range(cfg.n_layers):
-        attn = attention.Attention(*(t(stack["attn"][n][i]) for n in _ATTN))
-        mlp = (ffn.GLU(*(t(stack["mlp"][n][i]) for n in _GLU))
-               if "mlp" in stack else None)
-        dense.append(transformer.DenseLayer(attn, t(stack["ln1"][i]),
-                                            t(stack["ln2"][i]), mlp))
     lm_head = t(params["lm_head"]) if "lm_head" in params else None
-    return transformer.Transformer(cfg, t(params["embed"]),
-                                   t(params["ln_f"]), dense, lm_head)
+    embed, ln_f = t(params["embed"]), t(params["ln_f"])
+    if cfg.family == "hybrid":
+        n_groups, rem = divmod(cfg.n_layers, cfg.attn_every)
+        groups = [[_mamba_layer(_index(params["mamba"], (g, i)), t)
+                   for i in range(cfg.attn_every)] for g in range(n_groups)]
+        tail = [_mamba_layer(_index(params["mamba_tail"], i), t)
+                for i in range(rem)]
+        return transformer.HybridLM(cfg, embed, ln_f, groups, tail,
+                                    _dense_layer(params["shared"], t),
+                                    lm_head)
+    dense = [_dense_layer(_index(params["layers"], i), t)
+             for i in range(cfg.n_layers)]
+    return transformer.Transformer(cfg, embed, ln_f, dense, lm_head)
 
 
-def lm_to_numpy(model: transformer.Transformer) -> dict:
+def lm_to_numpy(model) -> dict:
     """The reference's params pytree (numpy) from the port's model."""
-    def a(p):
-        return p.detach().cpu().numpy()
-
-    def stacked(get):
-        return np.stack([a(get(lp)) for lp in model.layers])
-
-    out = {"embed": a(model.embed), "ln_f": a(model.ln_f), "layers": {
-        "attn": {n: stacked(lambda lp, n=n: getattr(lp.attn, n))
-                 for n in _ATTN},
-        "ln1": stacked(lambda lp: lp.ln1),
-        "ln2": stacked(lambda lp: lp.ln2)}}
-    if model.layers and model.layers[0].mlp is not None:
-        out["layers"]["mlp"] = {n: stacked(lambda lp, n=n: getattr(lp.mlp, n))
-                                for n in _GLU}
+    out = {"embed": _numpy(model.embed), "ln_f": _numpy(model.ln_f)}
+    if isinstance(model, transformer.HybridLM):
+        out["mamba"] = _stack([_stack([_mamba_tree(lp) for lp in g])
+                               for g in model.mamba])
+        if len(model.mamba_tail):
+            out["mamba_tail"] = _stack([_mamba_tree(lp)
+                                        for lp in model.mamba_tail])
+        out["shared"] = _dense_tree(model.shared)
+    else:
+        out["layers"] = _stack([_dense_tree(lp) for lp in model.layers])
     if model.lm_head is not None:
-        out["lm_head"] = a(model.lm_head)
+        out["lm_head"] = _numpy(model.lm_head)
     return out

@@ -2,6 +2,7 @@
 
 `base` holds the schema (`ArchConfig`, `ShapeConfig`, `SHAPES`); one
 module per ported architecture exports CONFIG (the published numbers) and
-SMOKE (a reduced config of the same family for CPU tests).  So far only
-llama3.2-3b is ported; `models.registry.get` resolves the ids.
+SMOKE (a reduced config of the same family for CPU tests).  Ported so far:
+llama3.2-3b (dense) and zamba2-7b (hybrid); `models.registry.get`
+resolves the ids.
 """

@@ -63,6 +63,9 @@ SIGNATURES = {
     "flash_attention": {
         "flash_attention_launch": [_P] * 4 + [_I] * 6 + [_F, _I, _P],
     },
+    "ssd_scan": {
+        "ssd_scan_launch": [_P] * 5 + [_I] * 6 + [_P],
+    },
 }
 
 _lock = threading.Lock()

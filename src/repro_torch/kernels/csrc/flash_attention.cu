@@ -42,7 +42,10 @@
 //           through a small per-warp shared buffer and are read back as
 //           broadcasts.
 // D is a template parameter: 16 and 32 (the CPU-test configs' head
-// widths), 64, 128 and 256 (gemma-7b).
+// widths), 64, 112 (zamba2-7b's shared block), 128 and 256 (gemma-7b).
+// At D = 112 a lane owns columns lane, lane + 32, lane + 64 and, in the
+// low half-warp only, lane + 96; K rows (D + 4 = 116 floats) are still
+// read as float4s without bank conflicts.
 // Causal key tiles past a CTA's last row are never loaded, and a warp
 // skips a tile that lies wholly above its 8 rows (its p would all be 0),
 // as the Pallas grid bound skips masked KV blocks.
@@ -89,7 +92,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   extern __shared__ float4 smem4[];
   constexpr int KS = Smem<D>::kStride;
   constexpr int NI = (D + 31) / 32;  // output columns a lane owns
-  const bool col_ok = D % 32 == 0 || (threadIdx.x & 31) < D;
+  // column lane + 32 i exists: always, unless D is not a multiple of 32
+  auto col_ok = [](int i) {
+    return D % 32 == 0 || (int)(threadIdx.x & 31) + 32 * i < D;
+  };
   float* qs = reinterpret_cast<float*>(smem4);
   float* ks = qs + Smem<D>::q;
   float* vs = ks + Smem<D>::k;
@@ -190,7 +196,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float vj[NI];
 #pragma unroll
       for (int i = 0; i < NI; ++i)
-        vj[i] = col_ok ? vs[j * D + lane + 32 * i] : 0.f;
+        vj[i] = col_ok(i) ? vs[j * D + lane + 32 * i] : 0.f;
       const float4* p4 = reinterpret_cast<const float4*>(pw + j * kRowsPerWarp);
       const float4 pa = p4[0];
       const float4 pb = p4[1];
@@ -212,11 +218,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) lt += __shfl_xor_sync(kFull, lt, o);
     const int row = row0 + r;
-    if (row < S && col_ok) {
+    if (row < S) {
       const float denom = fmaxf(lt, 1e-30f);
       T* o = out + q_base + (long long)row * D;
 #pragma unroll
-      for (int i = 0; i < NI; ++i) store(o + lane + 32 * i, acc[r][i] / denom);
+      for (int i = 0; i < NI; ++i)
+        if (col_ok(i)) store(o + lane + 32 * i, acc[r][i] / denom);
     }
   }
 }
@@ -248,6 +255,8 @@ int launch_d(const void* q, const void* k, const void* v, void* out, int B,
       return launch<T, 32>(q, k, v, out, B, H, KH, S, causal, scale, stream);
     case 64:
       return launch<T, 64>(q, k, v, out, B, H, KH, S, causal, scale, stream);
+    case 112:
+      return launch<T, 112>(q, k, v, out, B, H, KH, S, causal, scale, stream);
     case 128:
       return launch<T, 128>(q, k, v, out, B, H, KH, S, causal, scale, stream);
     case 256:

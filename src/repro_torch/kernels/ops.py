@@ -24,7 +24,7 @@ from . import build, ref
 from .ref import KmerLanes, MerWalkOut  # re-export  # noqa: F401
 
 KERNELS = ("kmer_extract", "dht_lookup", "dht_insert", "seed_probe",
-           "mer_walk", "sw_extend", "flash_attention")
+           "mer_walk", "sw_extend", "flash_attention", "ssd_scan")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 
@@ -366,7 +366,7 @@ def sw_extend(query, target, qlen, tlen, *, band: int = 15, match: int = 1,
 
 # dtype codes of the flash kernel's C interface
 _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_FLASH_HEAD_DIMS = (16, 32, 64, 128, 256)
+_FLASH_HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, scale=None,
@@ -376,7 +376,7 @@ def flash_attention(q, k, v, *, causal: bool = True, scale=None,
 
     fp32 or bf16 inputs of one dtype, fp32 accumulation, output in q's
     dtype; scale defaults to 1/sqrt(D).  The kernel takes D in (16, 32,
-    64, 128, 256) and contiguous tensors.
+    64, 112, 128, 256) and contiguous tensors.
     """
     if not _use_kernel(backend, q):
         return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
@@ -409,3 +409,46 @@ def flash_attention(q, k, v, *, causal: bool = True, scale=None,
         scale, _FLASH_DTYPES[q.dtype], _stream(dev))
     _launched("flash_attention", lib, err)
     return out
+
+
+# the ssd_scan kernel's fixed maxima (csrc/ssd_scan.cu: kT, kP, kN)
+_SSD_MAX_CHUNK, _SSD_MAX_P, _SSD_MAX_N = 128, 64, 64
+
+
+def ssd_scan(x, a, b, c, *, chunk: int = 128, backend=None):
+    """Chunked Mamba-2 SSD scan: x [B, S, H, P], log-decays a [B, S, H],
+    b, c [B, S, H, N] -> y [B, S, H, P] (`ref.ssd_scan_ref`).
+
+    The chunk is Q = min(chunk, S) and S must be a multiple of it, on both
+    paths.  The kernel takes contiguous fp32 tensors with Q <= 128,
+    P <= 64 and N <= 64.
+    """
+    if x.dim() != 4:
+        raise ValueError(f"ssd_scan: x must be [B, S, H, P], got "
+                         f"{tuple(x.shape)}")
+    B, S, H, P = x.shape
+    Q = ref.ssd_chunk(S, chunk)
+    if not _use_kernel(backend, x):
+        return ref.ssd_scan_ref(x, a, b, c, chunk=chunk)
+    N = b.shape[-1] if b.dim() == 4 else 0
+    if a.shape != (B, S, H) or b.shape != (B, S, H, N) or c.shape != b.shape:
+        raise ValueError(f"ssd_scan: x {tuple(x.shape)}, a {tuple(a.shape)}, "
+                         f"b {tuple(b.shape)}, c {tuple(c.shape)}: need a "
+                         f"[B, S, H] and b, c [B, S, H, N]")
+    if Q > _SSD_MAX_CHUNK or not 1 <= P <= _SSD_MAX_P or \
+            not 1 <= N <= _SSD_MAX_N:
+        raise ValueError(f"ssd_scan: the kernel takes chunk <= "
+                         f"{_SSD_MAX_CHUNK}, P <= {_SSD_MAX_P} and N <= "
+                         f"{_SSD_MAX_N}, got chunk {Q}, P={P}, N={N}")
+    if B * H >= 1 << 31:
+        raise ValueError(f"ssd_scan: grid of B*H={B * H} exceeds the "
+                         f"launch limit")
+    dev = x.device
+    for name, t in (("x", x), ("a", a), ("b", b), ("c", c)):
+        _check(name, t, torch.float32, dev)
+    y = torch.empty_like(x)
+    lib = build.library("ssd_scan")
+    err = lib.ssd_scan_launch(_ptr(x), _ptr(a), _ptr(b), _ptr(c), _ptr(y),
+                              B, S, H, P, N, Q, _stream(dev))
+    _launched("ssd_scan", lib, err)
+    return y

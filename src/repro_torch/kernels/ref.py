@@ -4,7 +4,9 @@ Each `*_ref` has its kernel's interface and the reference's semantics op
 for op: `kmer_extract_ref`, `dht_lookup_ref`, `dht_insert_ref`,
 `seed_probe_ref`, `mer_walk_ref`, `sw_extend_ref` and
 `flash_attention_ref` follow `repro/kernels/ref.py` and the jnp table
-rounds of `repro/core/dht.py` (`insert_jnp`, `lookup_jnp`).
+rounds of `repro/core/dht.py` (`insert_jnp`, `lookup_jnp`);
+`ssd_scan_ref` is the chunked SSD of `repro/models/ssm.py:ssd_chunked`
+with the causal mask taken before `exp`.
 `kernels.ops` serves them for CPU tensors, and `chip_smoke.py` holds each
 CUDA kernel against them on the card.  Lanes are int32 bit patterns,
 widened to int64 for arithmetic (`core.types`).
@@ -420,3 +422,64 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, scale=None):
         logits = torch.where(mask, logits, -1e30)
     p = torch.softmax(logits, dim=-1)
     return torch.einsum("bhst,bhtd->bhsd", p, v.float()).to(q.dtype)
+
+
+def ssd_chunk(S: int, chunk: int) -> int:
+    """The chunk the scan takes: Q = min(chunk, S), and S % Q == 0 (the
+    reference's rule, `repro/models/ssm.py:ssd_chunked`)."""
+    Q = min(chunk, S)
+    if Q < 1 or S % Q:
+        raise ValueError(f"ssd_scan: S={S} is not a positive multiple of "
+                         f"the chunk min(chunk={chunk}, S)={Q}")
+    return Q
+
+
+def ssd_scan_ref(x, a, b, c, *, chunk: int = 128):
+    """Chunked Mamba-2 SSD scan (scalar decay per head), the plain version
+    of the ssd_scan kernel and the port's `ssm.ssd_chunked`.
+
+    x [B, S, H, P]; a [B, S, H] log-decays; b, c [B, S, H, N].  Per chunk
+    of Q = min(chunk, S) rows, with cum = cumsum(a):
+      y[t]  = sum_{s<=t} exp(cum[t] - cum[s]) (c[t] . b[s]) x[s]
+              + exp(cum[t]) (c[t] . state)
+      state = exp(cum[Q-1]) state + sum_s exp(cum[Q-1] - cum[s]) x[s] b[s]^T
+    The reference's op order, with two changes.  The decay exponent is
+    masked to -inf above the diagonal before `exp`: the reference forms
+    exp(cum[t] - cum[s]) for every (t, s) and multiplies by the mask after,
+    which gives inf * 0 = NaN once a chunk's decays sum below about -88.7
+    (ROADMAP.md Queue 3).  And cum is summed and differenced in fp64, then
+    rounded to the working type before `exp`: a chunk's decays sum to about
+    -100 at zamba2-7b's widths, where an fp32 cum[t] - cum[s] carries the
+    sums' rounding (about 1e-5, and it depends on the order each device
+    sums in) into every weight.  Products in fp32 (fp64 for fp64 inputs);
+    y in x's dtype.
+    """
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    Q = ssd_chunk(S, chunk)
+    nc = S // Q
+    dt = torch.promote_types(x.dtype, torch.float32)
+    xq = x.reshape(B, nc, Q, H, P).to(dt)
+    aq = a.reshape(B, nc, Q, H).to(dt)
+    bq = b.reshape(B, nc, Q, H, N).to(dt)
+    cq = c.reshape(B, nc, Q, H, N).to(dt)
+    cum = torch.cumsum(aq.double(), dim=2)  # [B, nc, Q, H], fp64
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    expo = torch.where(tri[:, :, None],
+                       (cum[:, :, :, None, :] - cum[:, :, None, :, :]).to(dt),
+                       float("-inf"))
+    cb = torch.einsum("bgthn,bgshn->bgtsh", cq, bq)
+    y_intra = torch.einsum("bgtsh,bgshp->bgthp", cb * torch.exp(expo), xq)
+    del expo, cb
+    tail = torch.exp((cum[:, :, -1:, :] - cum).to(dt))  # [B, nc, Q, H]
+    upd = torch.einsum("bgqhp,bgqhn->bghpn", xq * tail[..., None], bq)
+    cum = cum.to(dt)
+    total = torch.exp(cum[:, :, -1, :])  # [B, nc, H]
+    state = torch.zeros((B, H, P, N), dtype=dt, device=x.device)
+    prev = []  # the state entering each chunk
+    for g in range(nc):
+        prev.append(state)
+        state = state * total[:, g, :, None, None] + upd[:, g]
+    y_state = torch.einsum("bghpn,bgqhn->bgqhp", torch.stack(prev, dim=1),
+                           cq) * torch.exp(cum)[..., None]
+    return (y_intra + y_state).reshape(B, S, H, P).to(x.dtype)

@@ -83,7 +83,8 @@ def _naive_attention(q, k, v, cfg: ArchConfig, causal: bool):
         if cfg.window:
             mask = mask & (ii[:, None] - ii[None, :] < cfg.window)
         logits = torch.where(mask, logits, NEG)
-    probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+    probs = torch.softmax(logits.to(layers.acc_dtype(logits.dtype)),
+                          dim=-1).to(q.dtype)
     return torch.einsum("bhst,bthd->bshd", probs, vf)
 
 
@@ -137,7 +138,8 @@ def decode_attention(p, x, cfg: ArchConfig, rope, cache: KVCache):
     if cfg.window:
         live = live & (tpos > pos - cfg.window)
     logits = torch.where(live, logits, NEG)
-    probs = torch.softmax(logits.float(), dim=-1).to(x.dtype)
+    probs = torch.softmax(logits.to(layers.acc_dtype(logits.dtype)),
+                          dim=-1).to(x.dtype)
     o = torch.einsum("bkrt,btkd->bkrd", probs, cache.v.to(x.dtype))
     o = o.reshape(B, 1, cfg.n_heads * hd)
     return o @ p.wo, KVCache(k=cache.k, v=cache.v, pos=pos + 1)

@@ -1,8 +1,10 @@
 """Batched token decoding with continuous batching and masked admission.
 
-Mirrors `repro.models.decode_engine`.  The decode state is one
-batch-wide KV cache with a single shared write position, so every
-`decode_step` advances every slot.  A newly admitted request's prompt is
+Mirrors `repro.models.decode_engine`, and like it knows the model only
+through `registry.model_fns`: `init_decode_state` and `decode_step` of
+any ported family (dense KV caches, or the hybrid's SSM states and shared
+block caches).  The decode state is batch-wide with a single shared write
+position, so every `decode_step` advances every slot.  A newly admitted request's prompt is
 therefore fed through the shared loop one token per step, isolated to its
 slot's row (its logits ignored until the prompt is consumed), while live
 slots keep decoding their own streams; admission itself is host
@@ -53,7 +55,10 @@ class Engine:
         self.state = self.fns["init_decode_state"](
             cfg, batch_slots, serve_cfg.max_len, dtype=serve_cfg.state_dtype,
             device=self.device)
-        self._step = lambda s, t: self.fns["decode_step"](cfg, model, s, t)
+        # no reference to self: a cycle would keep the model's weights on
+        # the card after the engine is dropped, until the cyclic collector
+        decode_step = self.fns["decode_step"]
+        self._step = lambda s, t: decode_step(cfg, model, s, t)
         # slot bookkeeping (host side)
         self.live = np.zeros(batch_slots, bool)
         self.outputs: List[List[int]] = [[] for _ in range(batch_slots)]

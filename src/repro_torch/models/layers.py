@@ -46,9 +46,15 @@ def norm_init(d: int, dtype=torch.float32, device=None):
     return torch.ones((d,), dtype=dtype, device=device)
 
 
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The type the reference's `astype(float32)` sums in: fp32, or fp64
+    for fp64 tensors (a float64 run stays float64 throughout)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def rmsnorm(x, w, eps: float = 1e-5):
     """Cast back to x's dtype before the weight, as the reference."""
-    var = x.float().square().mean(dim=-1, keepdim=True)
+    var = x.to(acc_dtype(x.dtype)).square().mean(dim=-1, keepdim=True)
     return (x * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
@@ -66,8 +72,8 @@ def rope_freqs(head_dim: int, max_seq: int, theta: float = 10000.0,
 def apply_rope(x, cos, sin, rot: int, positions=None):
     """x: [B, S, H, D]; positions: [B, S] (defaults to arange).
 
-    Rotates interleaved pairs (0::2, 1::2), not HF's rotate_half, in fp32,
-    and casts to x's dtype.  Positions past the table clamp to its last
+    Rotates interleaved pairs (0::2, 1::2), not HF's rotate_half, in fp32
+    (fp64 for fp64 x), and casts to x's dtype.  Positions past the table clamp to its last
     row, as JAX's gather does.
     """
     B, S, H, D = x.shape
@@ -78,7 +84,7 @@ def apply_rope(x, cos, sin, rot: int, positions=None):
         positions = positions.clamp(0, cos.shape[0] - 1)
         c = cos[positions][:, :, None, :]
         s = sin[positions][:, :, None, :]
-    xr = x[..., :rot].float()
+    xr = x[..., :rot].to(acc_dtype(x.dtype))
     x1 = xr[..., 0::2]
     x2 = xr[..., 1::2]
     y1 = x1 * c - x2 * s

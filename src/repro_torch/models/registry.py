@@ -13,11 +13,11 @@ from . import transformer
 
 ARCHS = {
     "llama3.2-3b": "repro_torch.configs.llama32_3b",
+    "zamba2-7b": "repro_torch.configs.zamba2_7b",
 }
 
 # the reference's other architectures, still to port
 UNPORTED = {
-    "zamba2-7b": "ROADMAP.md Queue 2 item 8 (the hybrid family, next)",
     **dict.fromkeys(
         ("whisper-large-v3", "qwen2-moe-a2.7b", "arctic-480b", "chatglm3-6b",
          "gemma-7b", "starcoder2-3b", "internvl2-2b", "xlstm-125m"),

@@ -1,19 +1,22 @@
-"""The dense decoder stack: prefill forward and cached decode.
+"""Decoder stacks: the dense family and the hybrid family (zamba2), with
+prefill forward and cached decode.
 
-Mirrors `repro.models.transformer` for the dense family (llama3.2-3b):
+Mirrors `repro.models.transformer` for llama3.2-3b and zamba2-7b:
 
-  init_params(cfg, generator, device=...)   -> Transformer (an nn.Module)
+  init_params(cfg, generator, device=...)   -> Transformer or HybridLM
   forward(cfg, model, batch, use_kernel=...) -> (logits [B, S, Vpad], aux)
-  init_decode_state(cfg, B, max_len)         -> {"caches", "pos"}
+  init_decode_state(cfg, B, max_len)         -> the family's decode state
   decode_step(cfg, model, state, tokens)     -> (logits [B, 1, Vpad], state)
 
-The reference scans one stacked pytree over the layers; here a
-`Transformer` holds an `nn.ModuleList` of `DenseLayer`s whose weights keep
-the reference's names and `[d_in, d_out]` layout.  PyTorch runs eagerly,
-so there is no jit, scan or remat: `forward` runs under
+The reference scans stacked pytrees over the layers; here a `Transformer`
+holds an `nn.ModuleList` of `DenseLayer`s, and a `HybridLM` its Mamba-2
+layers in groups of `attn_every` (a `mamba_tail` of the rest) and one
+weight-tied `shared` attention + GLU block that runs after every group.
+Weights keep the reference's names and `[d_in, d_out]` layout.  PyTorch
+runs eagerly, so there is no jit, scan or remat: `forward` runs under
 `torch.inference_mode()` unless `grad=True`.  The vocabulary is padded to
-a multiple of 16; with tied embeddings the head is `embed.T`.  The hybrid
-(zamba2), xLSTM, MoE and frontend families raise (ROADMAP.md).
+a multiple of 16; with tied embeddings the head is `embed.T`.  The xLSTM,
+MoE and frontend families raise (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from . import attention, ffn, layers
+from . import attention, ffn, layers, ssm
 
 
 class DenseLayer(nn.Module):
@@ -35,39 +38,77 @@ class DenseLayer(nn.Module):
         self.mlp = mlp
 
 
-class Transformer(nn.Module):
-    """embed [Vpad, d], ln_f [d], lm_head [d, Vpad] (None when tied) and
-    the layers."""
+class MambaLayer(nn.Module):
+    """Pre-norm Mamba-2 mixer: ln, mixer."""
 
-    def __init__(self, cfg: ArchConfig, embed, ln_f, dense_layers,
-                 lm_head=None):
+    def __init__(self, mixer, ln):
+        super().__init__()
+        self.mixer = mixer
+        self.ln = nn.Parameter(ln)
+
+
+class _LM(nn.Module):
+    """embed [Vpad, d], ln_f [d] and lm_head [d, Vpad] (None when tied)."""
+
+    def __init__(self, cfg: ArchConfig, embed, ln_f, lm_head):
         super().__init__()
         self.cfg = cfg
         self.embed = nn.Parameter(embed)
         self.ln_f = nn.Parameter(ln_f)
         self.lm_head = None if lm_head is None else nn.Parameter(lm_head)
-        self.layers = nn.ModuleList(dense_layers)
 
     def head(self):
         return self.embed.T if self.cfg.tie_embeddings else self.lm_head
 
 
+class Transformer(_LM):
+    """The dense family: the embedding, head and the layers."""
+
+    def __init__(self, cfg: ArchConfig, embed, ln_f, dense_layers,
+                 lm_head=None):
+        super().__init__(cfg, embed, ln_f, lm_head)
+        self.layers = nn.ModuleList(dense_layers)
+
+
+class HybridLM(_LM):
+    """The hybrid family: `mamba` (n_layers // attn_every groups of
+    attn_every `MambaLayer`s), `mamba_tail` (the n_layers % attn_every
+    left, maybe none) and `shared`, one `DenseLayer` called after every
+    group."""
+
+    def __init__(self, cfg: ArchConfig, embed, ln_f, mamba_groups,
+                 mamba_tail, shared, lm_head=None):
+        super().__init__(cfg, embed, ln_f, lm_head)
+        self.mamba = nn.ModuleList(nn.ModuleList(g) for g in mamba_groups)
+        self.mamba_tail = nn.ModuleList(mamba_tail)
+        self.shared = shared
+
+
 def check_family(cfg: ArchConfig) -> None:
-    """The port runs the dense family only; the rest names its ROADMAP
-    item."""
-    if cfg.family == "hybrid":
-        raise NotImplementedError(
-            f"{cfg.name}: the hybrid family (zamba2: Mamba-2 layers, "
-            f"_hybrid_forward, _hybrid_decode, ssd_scan) is the next slice, "
-            f"ROADMAP.md Queue 2 item 8")
-    if cfg.xlstm or cfg.is_moe or cfg.frontend or cfg.family != "dense":
+    """The port runs the dense and hybrid families; the rest names its
+    ROADMAP item."""
+    if cfg.xlstm or cfg.is_moe or cfg.frontend or cfg.family not in (
+            "dense", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} (xLSTM, MoE, frontends, "
             f"enc-dec) is still to port, ROADMAP.md Queue 1 item 8")
 
 
+def _dense_layer_init(generator, cfg: ArchConfig, **kw) -> DenseLayer:
+    attn = attention.init(generator, cfg, **kw)
+    mlp = (ffn.glu_init(generator, cfg.d_model, cfg.d_ff, **kw)
+           if cfg.d_ff else None)
+    return DenseLayer(attn, layers.norm_init(cfg.d_model, **kw),
+                      layers.norm_init(cfg.d_model, **kw), mlp)
+
+
+def _mamba_layer_init(generator, cfg: ArchConfig, **kw) -> MambaLayer:
+    return MambaLayer(ssm.mamba2_init(generator, cfg, **kw),
+                      layers.norm_init(cfg.d_model, **kw))
+
+
 def init_params(cfg: ArchConfig, generator=None, *, device=None,
-                dtype=torch.float32) -> Transformer:
+                dtype=torch.float32):
     """Random weights from `generator` (a torch.Generator on `device`, or
     None for the device's default), with the reference's shapes and
     scales.  Runs on the card unless `device` is given; device="meta"
@@ -81,13 +122,15 @@ def init_params(cfg: ArchConfig, generator=None, *, device=None,
     lm_head = None
     if not cfg.tie_embeddings:
         lm_head = layers.dense_init(generator, cfg.d_model, vpad, **kw)
-    stack = []
-    for _ in range(cfg.n_layers):
-        attn = attention.init(generator, cfg, **kw)
-        mlp = (ffn.glu_init(generator, cfg.d_model, cfg.d_ff, **kw)
-               if cfg.d_ff else None)
-        stack.append(DenseLayer(attn, layers.norm_init(cfg.d_model, **kw),
-                                layers.norm_init(cfg.d_model, **kw), mlp))
+    if cfg.family == "hybrid":
+        n_groups, rem = divmod(cfg.n_layers, cfg.attn_every)
+        groups = [[_mamba_layer_init(generator, cfg, **kw)
+                   for _ in range(cfg.attn_every)] for _ in range(n_groups)]
+        tail = [_mamba_layer_init(generator, cfg, **kw) for _ in range(rem)]
+        shared = _dense_layer_init(generator, cfg, **kw)
+        return HybridLM(cfg, embed, ln_f, groups, tail, shared, lm_head)
+    stack = [_dense_layer_init(generator, cfg, **kw)
+             for _ in range(cfg.n_layers)]
     return Transformer(cfg, embed, ln_f, stack, lm_head)
 
 
@@ -108,20 +151,41 @@ def _dense_layer(cfg: ArchConfig, lp: DenseLayer, h, rope, use_kernel):
     return h
 
 
-def forward(cfg: ArchConfig, model: Transformer, batch, *,
-            use_kernel: bool = False, grad: bool = False):
+def _mamba_layer(cfg: ArchConfig, lp: MambaLayer, h, use_kernel):
+    return h + ssm.mamba2_block(
+        lp.mixer, layers.rmsnorm(h, lp.ln, cfg.norm_eps), cfg,
+        use_kernel=use_kernel)
+
+
+def _hybrid_forward(cfg: ArchConfig, model: HybridLM, h, rope, use_kernel):
+    """zamba2: groups of Mamba-2 layers, the shared block after each."""
+    for group in model.mamba:
+        for lp in group:
+            h = _mamba_layer(cfg, lp, h, use_kernel)
+        h = _dense_layer(cfg, model.shared, h, rope, use_kernel)
+    for lp in model.mamba_tail:
+        h = _mamba_layer(cfg, lp, h, use_kernel)
+    return h
+
+
+def forward(cfg: ArchConfig, model, batch, *, use_kernel: bool = False,
+            grad: bool = False):
     """Prefill forward -> (logits [B, S, Vpad], aux_loss).
 
-    `use_kernel=True` runs every layer's attention through the flash
-    kernel (one launch a layer on a CUDA tensor).
+    `use_kernel=True` runs every attention through the flash kernel and
+    every Mamba-2 scan through the ssd_scan kernel (one launch each on a
+    CUDA tensor).
     """
     check_family(cfg)
     with torch.inference_mode(not grad):
         tokens = batch["tokens"]
         h = model.embed[tokens]
         rope = _rope(cfg, tokens.shape[1], h.device)
-        for lp in model.layers:
-            h = _dense_layer(cfg, lp, h, rope, use_kernel)
+        if cfg.family == "hybrid":
+            h = _hybrid_forward(cfg, model, h, rope, use_kernel)
+        else:
+            for lp in model.layers:
+                h = _dense_layer(cfg, lp, h, rope, use_kernel)
         h = layers.rmsnorm(h, model.ln_f, cfg.norm_eps)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         return h @ model.head(), aux
@@ -129,35 +193,86 @@ def forward(cfg: ArchConfig, model: Transformer, batch, *,
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
                       dtype=torch.bfloat16, device=None):
-    """One KV cache a layer, all at the shared write position `pos`."""
+    """Dense: one KV cache a layer, all at the shared write position `pos`.
+    Hybrid: an fp32 `SSMState` a Mamba-2 layer (`mamba` in groups,
+    `mamba_tail`, None without a tail) and one KV cache a group for the
+    shared block (`shared_cache`), in `dtype`."""
     check_family(cfg)
     device = layers.resolve_device(device)
     with torch.inference_mode():
-        caches = [attention.init_cache(cfg, batch, max_len, dtype, device)
-                  for _ in range(cfg.n_layers)]
-    return {"caches": caches, "pos": 0}
+        def caches(n):
+            return [attention.init_cache(cfg, batch, max_len, dtype, device)
+                    for _ in range(n)]
+
+        if cfg.family != "hybrid":
+            return {"caches": caches(cfg.n_layers), "pos": 0}
+        n_groups, rem = divmod(cfg.n_layers, cfg.attn_every)
+
+        def states(n):
+            return [ssm.mamba2_init_state(cfg, batch, device)
+                    for _ in range(n)]
+
+        return {"mamba": [states(cfg.attn_every) for _ in range(n_groups)],
+                "mamba_tail": states(rem) if rem else None,
+                "shared_cache": caches(n_groups), "pos": 0}
 
 
-def decode_step(cfg: ArchConfig, model: Transformer, state, tokens):
+def _dense_decode_layer(cfg: ArchConfig, lp: DenseLayer, h, rope, cache,
+                        pos):
+    a, cache = attention.decode_attention(
+        lp.attn, layers.rmsnorm(h, lp.ln1, cfg.norm_eps), cfg, rope,
+        attention.KVCache(cache.k, cache.v, pos))
+    h = h + a
+    if lp.mlp is not None:
+        h = h + ffn.glu(lp.mlp, layers.rmsnorm(h, lp.ln2, cfg.norm_eps),
+                        cfg.act)
+    return h, cache
+
+
+def _mamba_decode_layers(cfg: ArchConfig, lps, h, states):
+    new = []
+    for lp, st in zip(lps, states):
+        out, st = ssm.mamba2_step(
+            lp.mixer, layers.rmsnorm(h, lp.ln, cfg.norm_eps), cfg, st)
+        h = h + out
+        new.append(st)
+    return h, new
+
+
+def _hybrid_decode(cfg: ArchConfig, model: HybridLM, state, h, rope):
+    pos = state["pos"]
+    new_mamba, new_caches = [], []
+    for group, gst, cache in zip(model.mamba, state["mamba"],
+                                 state["shared_cache"]):
+        h, gst = _mamba_decode_layers(cfg, group, h, gst)
+        h, cache = _dense_decode_layer(cfg, model.shared, h, rope, cache, pos)
+        new_mamba.append(gst)
+        new_caches.append(cache)
+    tail = state["mamba_tail"]
+    if tail is not None:
+        h, tail = _mamba_decode_layers(cfg, model.mamba_tail, h, tail)
+    return h, {"mamba": new_mamba, "mamba_tail": tail,
+               "shared_cache": new_caches, "pos": pos + 1}
+
+
+def decode_step(cfg: ArchConfig, model, state, tokens):
     """One-token decode.  tokens: [B, 1] -> (logits [B, 1, Vpad], state).
 
-    The caches of `state` are updated in place; the returned state holds
-    the same tensors and pos + 1.
+    The KV caches of `state` are updated in place; the SSM states are
+    replaced.  The returned state holds pos + 1.
     """
     check_family(cfg)
     with torch.inference_mode():
         h = model.embed[tokens]
         rope = _rope(cfg, cfg.max_seq, h.device)
-        pos = state["pos"]
-        caches = []
-        for lp, cache in zip(model.layers, state["caches"]):
-            a, cache = attention.decode_attention(
-                lp.attn, layers.rmsnorm(h, lp.ln1, cfg.norm_eps), cfg, rope,
-                attention.KVCache(cache.k, cache.v, pos))
-            h = h + a
-            if lp.mlp is not None:
-                h = h + ffn.glu(lp.mlp, layers.rmsnorm(h, lp.ln2,
-                                                       cfg.norm_eps), cfg.act)
-            caches.append(cache)
+        if cfg.family == "hybrid":
+            h, new_state = _hybrid_decode(cfg, model, state, h, rope)
+        else:
+            pos = state["pos"]
+            caches = []
+            for lp, cache in zip(model.layers, state["caches"]):
+                h, cache = _dense_decode_layer(cfg, lp, h, rope, cache, pos)
+                caches.append(cache)
+            new_state = {"caches": caches, "pos": pos + 1}
         h = layers.rmsnorm(h, model.ln_f, cfg.norm_eps)
-        return h @ model.head(), {"caches": caches, "pos": pos + 1}
+        return h @ model.head(), new_state

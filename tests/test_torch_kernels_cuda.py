@@ -4,16 +4,19 @@ Each hand-written kernel (`repro_torch/kernels/csrc/`) is held to its plain
 PyTorch version (`repro_torch.kernels.ref`, itself held to the JAX
 reference by the other test_torch_* files) at small shapes with the edge
 cases of those files, plus the whole `contig_rounds`, `assemble` and
-`assemble_stream` on the card against the CPU run, and the SMOKE llama
-`forward(use_kernel=True)` and greedy `Engine` on the card against the CPU
-run.  Skipped where no CUDA card is visible; on the card:
+`assemble_stream` on the card against the CPU run, and the SMOKE llama's
+and SMOKE zamba2's `forward(use_kernel=True)` and greedy `Engine` on the
+card against the CPU run.  Skipped where no CUDA card is visible; on the
+card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
 Tolerance: exact, every output lane, for the assembly kernels and paths;
 flash_attention 1e-5 abs/rel in fp32 (online softmax, sums in another
-order) and 5e-2 in bf16 (the plain version rounds its logits to bf16),
-the SMOKE LM's logits 1e-4 (cuBLAS against CPU matmuls), tokens exact.
+order) and 5e-2 in bf16 (the plain version rounds its logits to bf16);
+ssd_scan 2e-4 abs/rel (the reference's Pallas-against-oracle tolerance:
+chunked sums in another order); the SMOKE LMs' logits 1e-4 (cuBLAS
+against CPU matmuls), tokens exact.
 """
 import copy
 
@@ -32,6 +35,7 @@ from repro_torch.stream import batches_from_readset
 pytestmark = pytest.mark.cuda
 
 # the kernels each assembly path launches: never the LM's flash_attention
+# or ssd_scan
 ASSEMBLY_KERNELS = ("kmer_extract", "dht_lookup", "dht_insert", "seed_probe",
                     "mer_walk", "sw_extend")
 
@@ -152,7 +156,7 @@ def test_contig_rounds_on_card_equals_cpu(dev):
     # walk and the gapped DP runs
     assert all(ops.LAUNCHES[n] > 0 for n in ASSEMBLY_KERNELS
                if n not in ("mer_walk", "sw_extend")), ops.LAUNCHES
-    assert ops.LAUNCHES["flash_attention"] == 0
+    assert ops.LAUNCHES["flash_attention"] == ops.LAUNCHES["ssd_scan"] == 0
     want = Assembler(plan, Local("cpu")).contig_rounds(reads)
     for g, w in zip(got[:3], want[:3]):
         g = g if isinstance(g, tuple) else (g,)
@@ -234,7 +238,7 @@ def test_assemble_on_card_equals_cpu(dev):
     assert all(ops.LAUNCHES[n] > 0 for n in ASSEMBLY_KERNELS
                if n != "sw_extend"), ops.LAUNCHES
     assert ops.LAUNCHES["sw_extend"] == 0
-    assert ops.LAUNCHES["flash_attention"] == 0
+    assert ops.LAUNCHES["flash_attention"] == ops.LAUNCHES["ssd_scan"] == 0
     want = Assembler(plan, Local("cpu")).assemble(reads)
     for key in ("contigs", "alive", "alignments", "links", "suspended",
                 "components", "scaffolds", "scaffold_seqs"):
@@ -308,7 +312,7 @@ def test_assemble_stream_on_card_equals_cpu(dev):
     got = Assembler(plan, Local(dev)).assemble_stream(batches)
     assert all(ops.LAUNCHES[n] > 0 for n in ASSEMBLY_KERNELS), ops.LAUNCHES
     assert ops.LAUNCHES["sw_extend"] == 3 * len(batches) * 2
-    assert ops.LAUNCHES["flash_attention"] == 0
+    assert ops.LAUNCHES["flash_attention"] == ops.LAUNCHES["ssd_scan"] == 0
     want = Assembler(plan, Local("cpu")).assemble_stream(batches)
     for key in ("contigs", "alive", "alignments", "links", "suspended",
                 "components", "scaffolds", "scaffold_seqs"):
@@ -342,7 +346,7 @@ def _qkv(seed, B, H, KH, S, D, dtype, dev):
 
 @pytest.mark.parametrize("H,KH", [(4, 4), (6, 2)])
 @pytest.mark.parametrize("S", [1, 100, 256, 1000])
-@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("D", [16, 32, 64, 112, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_kernel_equals_plain(dev, causal, dtype, D, S, H, KH):
@@ -393,6 +397,7 @@ def test_lm_forward_on_card_equals_cpu(smoke_lm, dev):
     assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
     plain, _ = transformer.forward(cfg, card, {"tokens": tok.to(dev)})
     assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
+    assert ops.LAUNCHES["ssd_scan"] == 0
     want, _ = transformer.forward(cfg, cpu, {"tokens": tok}, use_kernel=True)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(plain.cpu(), want, rtol=1e-4, atol=1e-4)
@@ -409,6 +414,117 @@ def test_lm_greedy_engine_on_card_equals_cpu(smoke_lm, dev):
             eng.submit(p)
         ops.reset_launches()
         outs.append(eng.run(max_new_tokens=40))
-        assert ops.LAUNCHES["flash_attention"] == 0  # decode: no prefill
+        assert not any(ops.LAUNCHES.values())  # decode: no prefill
+    assert outs[0] == outs[1]
+    assert all(len(o) > 0 for o in outs[0])
+
+
+# ---------- the hybrid path: ssd_scan and the SMOKE zamba2 ----------
+
+SSD_TOL = 2e-4
+
+
+def _ssd_inputs(seed, B, S, H, P, N, dev):
+    """x, b, c standard normal; a = -softplus(z), z ~ N(0, 1): the
+    model's decays, whose chunk sums overflow the reference's unmasked
+    exp (the kernel masks before exp)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    x = torch.randn((B, S, H, P), generator=g, device=dev)
+    a = -torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=g, device=dev))
+    b = torch.randn((B, S, H, N), generator=g, device=dev)
+    c = torch.randn((B, S, H, N), generator=g, device=dev)
+    return x, a, b, c
+
+
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("S", [128, 512])
+@pytest.mark.parametrize("H", [8, 112])
+@pytest.mark.parametrize("PN", [16, 64])
+def test_ssd_scan_kernel_equals_plain(dev, B, S, H, PN):
+    x, a, b, c = _ssd_inputs(B * S + H + PN, B, S, H, PN, PN, dev)
+    ops.reset_launches()
+    got = ops.ssd_scan(x, a, b, c)
+    assert ops.LAUNCHES["ssd_scan"] == 1
+    want = ops.ssd_scan(x, a, b, c, backend="torch")
+    assert ops.LAUNCHES["ssd_scan"] == 1
+    assert got.shape == x.shape and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=SSD_TOL, atol=SSD_TOL)
+
+
+@pytest.mark.parametrize("S,chunk,P,N", [(96, 32, 64, 64), (100, 128, 8, 4),
+                                         (256, 64, 33, 17)])
+def test_ssd_scan_kernel_other_chunks_and_widths(dev, S, chunk, P, N):
+    """Chunks under 128 (S = 100 runs one chunk of Q = S) and widths that
+    are not multiples of 16."""
+    x, a, b, c = _ssd_inputs(S + P, 2, S, 3, P, N, dev)
+    got = ops.ssd_scan(x, a, b, c, chunk=chunk)
+    want = ops.ssd_scan(x, a, b, c, chunk=chunk, backend="torch")
+    torch.testing.assert_close(got, want, rtol=SSD_TOL, atol=SSD_TOL)
+
+
+def test_ssd_scan_kernel_refuses_what_it_does_not_take(dev):
+    x, a, b, c = _ssd_inputs(0, 1, 256, 2, 16, 16, dev)
+    with pytest.raises(ValueError, match="chunk <= 128"):
+        ops.ssd_scan(x, a, b, c, chunk=256)
+    with pytest.raises(ValueError, match="P <= 64"):
+        ops.ssd_scan(*_ssd_inputs(0, 1, 128, 2, 65, 16, dev))
+    with pytest.raises(ValueError, match="N <= 64"):
+        ops.ssd_scan(*_ssd_inputs(0, 1, 128, 2, 16, 80, dev))
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ops.ssd_scan(x[:, :200].contiguous(), a[:, :200].contiguous(),
+                     b[:, :200].contiguous(), c[:, :200].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.ssd_scan(x.repeat_interleave(2, dim=-1)[..., ::2], a, b, c)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.ssd_scan(x.double(), a.double(), b.double(), c.double())
+    with pytest.raises(ValueError, match="b, c"):
+        ops.ssd_scan(x, a, b, c[..., :8].contiguous())
+
+
+@pytest.fixture
+def smoke_hybrid(dev):
+    from repro_torch.models import registry, transformer
+    cfg = registry.get("zamba2-7b", smoke=True)
+    g = torch.Generator()
+    g.manual_seed(0)
+    cpu = transformer.init_params(cfg, g, device="cpu")
+    return cfg, cpu, copy.deepcopy(cpu).to(dev)
+
+
+def test_hybrid_forward_on_card_equals_cpu(smoke_hybrid, dev):
+    from repro_torch.models import transformer
+    cfg, cpu, card = smoke_hybrid
+    rng = np.random.default_rng(1)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 256)).astype(
+        np.int32))
+    n_groups = cfg.n_layers // cfg.attn_every
+    ops.reset_launches()
+    got, _ = transformer.forward(cfg, card, {"tokens": tok.to(dev)},
+                                 use_kernel=True)
+    assert ops.LAUNCHES["ssd_scan"] == cfg.n_layers
+    assert ops.LAUNCHES["flash_attention"] == n_groups
+    assert sum(ops.LAUNCHES.values()) == cfg.n_layers + n_groups
+    plain, _ = transformer.forward(cfg, card, {"tokens": tok.to(dev)})
+    assert sum(ops.LAUNCHES.values()) == cfg.n_layers + n_groups
+    want, _ = transformer.forward(cfg, cpu, {"tokens": tok}, use_kernel=True)
+    assert bool(torch.isfinite(want).all())
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(plain.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_hybrid_greedy_engine_on_card_equals_cpu(smoke_hybrid, dev):
+    from repro_torch.models.decode_engine import Engine, ServeConfig
+    cfg, cpu, card = smoke_hybrid
+    outs = []
+    for model, where in ((card, dev), (cpu, "cpu")):
+        eng = Engine(cfg, model, ServeConfig(max_len=64), batch_slots=3,
+                     device=where)
+        for p in ([5, 6, 7], [11, 12], list(range(20, 40))):
+            eng.submit(p)
+        ops.reset_launches()
+        outs.append(eng.run(max_new_tokens=40))
+        assert not any(ops.LAUNCHES.values())  # decode: mamba2_step, no scan
     assert outs[0] == outs[1]
     assert all(len(o) > 0 for o in outs[0])

@@ -12,13 +12,16 @@ both packages:
     `max_len`, where both clamp the cache write to the last slot;
   * the `Engine`'s greedy outputs on `tests/test_decode_engine.py`'s
     scenarios (solo, and an admission mid-decode, which must leave the
-    live slot undisturbed);
+    live slot undisturbed), and one slot serving two queued requests,
+    whose `run` returns only the second's tokens in both packages;
   * configs field for field, and the full-width parameter count.
 
 Tolerance: 1e-4 abs/rel on fp32 logits (matmul and softmax sums in
 another order, rope tables through another pow/cos); token ids exact.
 """
 import dataclasses
+import gc
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -201,6 +204,52 @@ def test_late_admission_sees_its_slot_history_in_both_packages(engine_runs):
     assert t_mid[1] != t_alone[0]
 
 
+def test_engine_discards_the_output_of_a_recycled_slot(lm):
+    """One slot, two queued requests, EOS 11.  The first request, [5, 6,
+    7], emits [11, 11] and stops after its 2 prompt steps and 2 tokens;
+    the slot then takes the second, [11, 12].  `run` returns one list, and
+    the step count shows that all of it was emitted after the first request
+    ended: the first request's tokens are lost, in both packages.  A fault
+    of the reference (ROADMAP.md Queue 3) that the port mirrors."""
+    jcfg, params, cfg, model = lm
+    jmodel = jax.tree.map(jnp.asarray, params)
+    runs = []
+    for engine_cls, serve_cls, c, m, kw in (
+            (JEngine, JServeConfig, jcfg, jmodel, {}),
+            (Engine, ServeConfig, cfg, model, {"device": "cpu"})):
+        out = []
+        for prompts in ([[5, 6, 7]], [[5, 6, 7], [11, 12]]):
+            eng = engine_cls(c, m, serve_cls(max_len=64, eos_token=11),
+                             batch_slots=1, **kw)
+            for p in prompts:
+                eng.submit(p)
+            out.append(([list(o) for o in eng.run(max_new_tokens=12)],
+                        int(eng.state["pos"])))
+        (first, n_first), (both, n_both) = out
+        assert first == [[11, 11]] and n_first == 2 + 2
+        assert len(both) == 1 and both[0][-1] == 11
+        assert n_both == n_first + 1 + len(both[0])  # second's steps only
+        runs.append(both)
+    assert runs[0] == runs[1]
+
+
+def test_engine_is_freed_without_the_cyclic_collector(lm):
+    """Dropping an Engine frees its state (and its hold on the model) at
+    once: no reference cycle waits for `gc` with the weights on the card."""
+    _, _, cfg, model = lm
+    gc.disable()
+    try:
+        eng = Engine(cfg, model, ServeConfig(max_len=8), batch_slots=1,
+                     device="cpu")
+        eng.submit([1, 2])
+        eng.run(max_new_tokens=3)
+        ref = weakref.ref(eng)
+        del eng
+        assert ref() is None
+    finally:
+        gc.enable()
+
+
 def test_engine_samples_from_a_seeded_generator(lm):
     _, _, cfg, model = lm
     outs = [Engine(cfg, model, ServeConfig(max_len=32, temperature=1.0),
@@ -226,13 +275,14 @@ def test_entry_points_raise_without_card(lm, monkeypatch):
 def test_unported_families_and_impls_raise(lm, monkeypatch):
     _, _, cfg, model = lm
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.get("zamba2-7b")
+        registry.get("xlstm-125m")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         registry.get("gemma-7b")
     with pytest.raises(KeyError):
         registry.get("no-such-arch")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.init_params(dataclasses.replace(cfg, family="hybrid"),
+        transformer.init_params(dataclasses.replace(cfg, family="ssm",
+                                                    xlstm=True),
                                 device="cpu")
     monkeypatch.setattr(flags, "ATTN_IMPL", "chunked")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
