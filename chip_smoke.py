@@ -14,7 +14,11 @@ Steps:
 
   1. card name and power limit (nvidia-smi);
   2. build the eight CUDA kernels' libraries from
-     src/repro_torch/kernels/csrc (one nvcc each, in parallel);
+     src/repro_torch/kernels/csrc (one nvcc each, in parallel); every
+     kernel's registers and spills (-Xptxas -v), and the flash_attention
+     and ssd_scan kernels' tensor-core instructions in the built SASS
+     (cuobjdump -sass: HGMMA in the bf16 flash kernel, HMMA in the fp32
+     flash kernel and ssd_scan; it fails without them);
   3. make the reads (host numpy, timed apart);
   4. path 1, Algorithm 1: `contig_rounds` with run_local_assembly=False,
      launch counts reset just before and read just after: each of
@@ -98,6 +102,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -139,6 +144,12 @@ PATH5_KERNELS = ("ssd_scan", "flash_attention")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 SCALAR_OPS_PER_S = 67e12    # H100 SXM 32-bit rate outside the tensor cores
 TENSOR_BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
+# fp32-accurate products on the tensor cores: the dense TF32 rate (495
+# TFLOP/s) over the three products of the 3xTF32 split, the least time the
+# card could take for fp32 work (the fp32 pipes outside the tensor cores,
+# SCALAR_OPS_PER_S, are slower); flash_attention's fp32 kernel and
+# ssd_scan run on it
+TENSOR_TF32X3_OPS_PER_S = 495e12 / 3
 # floor on the aligned read share and on the share of long contigs (or
 # scaffold pieces) that are verbatim genome substrings: a sanity gate
 # against garbage, not a target
@@ -1076,23 +1087,73 @@ def flash_row(row, ops, q, k, v, launches, card, path="lm_prefill"):
     B, H, S, D = q.shape
     flops = 4 * B * H * D * S * (S + 1) // 2  # causal pairs
     nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
-    rate = SCALAR_OPS_PER_S if q.dtype == torch.float32 else \
-        TENSOR_BF16_OPS_PER_S
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / rate * 1e3
-    b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
-                                                               "operations")
+    fp32 = q.dtype == torch.float32
+    rate = TENSOR_TF32X3_OPS_PER_S if fp32 else TENSOR_BF16_OPS_PER_S
+    b_ms, b_by = bound_of(nbytes, flops, rate)
+    simt_ms = bound_of(nbytes, flops, SCALAR_OPS_PER_S)[0]
+    simt = f"; fp32 SIMT bound {simt_ms:.4f} ms" if fp32 else ""
     log(f"{row}: q {list(q.shape)}, k/v {list(k.shape)}, {q.dtype}, causal; "
         f"max abs err {err:.3g} against plain, {used:.3f} of the tolerance "
         f"|d| <= {tol} + {tol} |plain|; kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms "
         f"(max abs err {lib_err:.3g} against plain); bound {b_ms:.4f} ms "
-        f"({b_by}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.0f} MB); {card}")
-    return dict(
+        f"({b_by}: {flops / 1e9:.1f} GFLOP at {rate / 1e12:.0f} TFLOP/s, "
+        f"{nbytes / 1e6:.0f} MB){simt}; {card}")
+    rec = dict(
         name=row, route="cuda", source=source, replaces=replaces,
         launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
         path=path, dtype=str(q.dtype).replace("torch.", ""))
+    if fp32:
+        rec["simt_bound_ms"] = simt_ms
+    return rec
+
+
+# tensor-core SASS each redesigned kernel must hold: (library, kernel name
+# prefix, opcode)
+TENSOR_CORE_SASS = (("flash_attention", "flash_bf16_kernel", "HGMMA"),
+                    ("flash_attention", "flash_f32_kernel", "HMMA"),
+                    ("ssd_scan", "ssd_scan_kernel", "HMMA"))
+
+
+def tensor_core_report(build):
+    """Registers and spills (-Xptxas -v) of every kernel, and the
+    tensor-core instructions of the flash_attention and ssd_scan kernels
+    in the built SASS (cuobjdump -sass): HGMMA (wgmma) in the bf16 flash
+    kernel, HMMA (mma.sync) in the fp32 flash kernel and ssd_scan.  Fails
+    if a kernel lacks its tensor-core instructions."""
+    def short(fn):  # the kernel's name and template arguments
+        m = re.search(r"(\w+_kernel(<[^>]*>)?)\(", fn)
+        return m.group(1) if m else fn
+
+    ptxas = build.ptxas_report(build.last_build().get("log", ""))
+    for fn, rep in ptxas.items():
+        log(f"  ptxas {short(fn)}: {rep.get('registers')} registers, "
+            f"{rep.get('spill_stores', 0)} bytes spill stores, "
+            f"{rep.get('spill_loads', 0)} bytes spill loads")
+    for lib in ("flash_attention", "ssd_scan"):
+        counts = build.sass_counts(lib)
+        if counts is None:
+            log(f"  cuobjdump -sass {lib}: not available")
+            continue
+        for fn, c in counts.items():
+            log(f"  cuobjdump -sass {short(fn)}: {c['HGMMA']} HGMMA, "
+                f"{c['HMMA']} HMMA")
+        for want_lib, prefix, op in TENSOR_CORE_SASS:
+            if want_lib != lib:
+                continue
+            fns = [fn for fn in counts if prefix in fn]
+            if not fns or any(counts[fn][op] == 0 for fn in fns):
+                raise AssertionError(f"{prefix}: no {op} in its SASS "
+                                     f"({ {fn: counts[fn] for fn in fns} })")
+
+
+def bound_of(nbytes, flops, rate) -> tuple:
+    """(ms, 'bytes' or 'operations'): the larger of the bytes over the
+    card's memory rate and the operations over `rate`."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def top2_gap(logits):
@@ -1344,21 +1405,22 @@ def ssd_row(ops, x, a, b, c, launches, card):
     # but one (the state is zero in the first chunk, and only y is output)
     flops = B * H * (nc * (2 * N + 2 * P) * pairs + (nc - 1) * 4 * T * P * N)
     nbytes = 4 * (2 * x.numel() + a.numel() + b.numel() + c.numel())
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / SCALAR_OPS_PER_S * 1e3
-    b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
-                                                               "operations")
+    b_ms, b_by = bound_of(nbytes, flops, TENSOR_TF32X3_OPS_PER_S)
+    t_ops = flops / TENSOR_TF32X3_OPS_PER_S * 1e3
+    simt_ms, simt_by = bound_of(nbytes, flops, SCALAR_OPS_PER_S)
     log(f"ssd_scan: x {list(x.shape)}, a {list(a.shape)}, b/c "
         f"{list(b.shape)}, fp32, chunk {T}; max abs err {err:.3g} against "
         f"plain (|plain| <= {top:.1f}), {used:.3f} of the tolerance |d| <= "
         f"{SSD_TOL} + {SSD_TOL} |plain|; kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}: "
-        f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.0f} MB); {card}")
+        f"{nbytes / 1e6:.0f} MB; {flops / 1e9:.2f} GFLOP at "
+        f"{TENSOR_TF32X3_OPS_PER_S / 1e12:.0f} TFLOP/s take {t_ops:.4f} ms); "
+        f"fp32 SIMT bound {simt_ms:.4f} ms ({simt_by}); {card}")
     return dict(
         name="ssd_scan", route="cuda", source=source, replaces=replaces,
         launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        path="hybrid_prefill", dtype="float32")
+        path="hybrid_prefill", dtype="float32", simt_bound_ms=simt_ms)
 
 
 def phase_hybrid(ops, card):
@@ -1546,9 +1608,7 @@ def main(argv=None) -> int:
     rep = build.last_build()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s "
         f"(nvcc, parallel: {rep.get('compiled')})")
-    for line in rep.get("log", "").splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas:", line.strip())
+    tensor_core_report(build)
 
     t0 = time.perf_counter()
     comm = mgsim.sample_community(0, num_genomes=args.num_genomes,

@@ -11,11 +11,14 @@ takes seconds.  A failed build raises with the compiler's output.
     from repro_torch.kernels import build
     lib = build.library("dht_probe")   # ctypes.CDLL, argtypes set
     build.last_build()                 # seconds and -Xptxas -v report
+    build.ptxas_report(build.last_build()["log"])  # registers, spills
+    build.sass_counts("flash_attention")  # tensor-core instructions
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import re
 import shutil
 import subprocess
 import threading
@@ -73,17 +76,22 @@ _libs: dict = {}
 _report: dict = {}
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def _tool(name: str):
+    """A CUDA toolkit program on PATH or in /usr/local/cuda/bin, or None."""
+    found = shutil.which(name)
     if found:
         return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError(
-        "nvcc not found: the CUDA kernels of repro_torch are built from "
-        f"{CSRC} at first use and need the CUDA toolkit"
-    )
+    default = Path("/usr/local/cuda/bin") / name
+    return str(default) if default.exists() else None
+
+
+def _nvcc() -> str:
+    found = _tool("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found: the CUDA kernels of repro_torch are built from "
+            f"{CSRC} at first use and need the CUDA toolkit")
+    return found
 
 
 def _digest(name: str) -> str:
@@ -149,3 +157,61 @@ def library(name: str) -> ctypes.CDLL:
 def last_build() -> dict:
     """{'seconds', 'compiled', 'log'} of the last build_all that compiled."""
     return dict(_report)
+
+
+def _demangle(names: list) -> dict:
+    tool = _tool("cu++filt") or shutil.which("c++filt")
+    if tool is None or not names:
+        return {n: n for n in names}
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True, timeout=60).stdout.splitlines()
+    return dict(zip(names, out)) if len(out) == len(names) else \
+        {n: n for n in names}
+
+
+def ptxas_report(log: str) -> dict:
+    """{kernel: {'registers', 'spill_stores', 'spill_loads'}} (bytes for
+    the spills) from the `-Xptxas -v` lines of a build log."""
+    report, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+            report[fn] = {}
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            report[fn].update(spill_stores=int(m.group(1)),
+                              spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report[fn]["registers"] = int(m.group(1))
+    names = _demangle(list(report))
+    return {names[k]: v for k, v in report.items()}
+
+
+def sass_counts(name: str, opcodes=("HGMMA", "HMMA")):
+    """{kernel: {opcode: instructions}} in the SASS of library `name`
+    (`cuobjdump -sass`), or None where the toolkit has no cuobjdump."""
+    tool = _tool("cuobjdump")
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", library(name)._name],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, fn = {}, None
+    pat = re.compile(r"\b(" + "|".join(opcodes) + r")\.")
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = dict.fromkeys(opcodes, 0)
+            continue
+        m = pat.search(line)
+        if m and fn is not None:
+            counts[fn][m.group(1)] += 1
+    names = _demangle(list(counts))
+    return {names[k]: v for k, v in counts.items()}

@@ -401,6 +401,10 @@ def flash_attention(q, k, v, *, causal: bool = True, scale=None,
     dev = q.device
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check(name, t, q.dtype, dev)
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: the kernel takes 16-byte "
+                             f"aligned tensors (TMA, cp.async); {name} is "
+                             f"at {t.data_ptr():#x}")
     scale = float(scale if scale is not None else 1.0 / (D ** 0.5))
     out = torch.empty_like(q)
     lib = build.library("flash_attention")

@@ -361,6 +361,38 @@ def test_flash_attention_kernel_equals_plain(dev, causal, dtype, D, S, H, KH):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("S", [63, 64, 65, 127, 129])
+@pytest.mark.parametrize("D", [112, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_at_tile_edges(dev, causal, dtype, D, S):
+    """S around the kernels' tiles: 64 keys a tile and 16 rows a warp in
+    fp32, 128 query rows (two warpgroups of 64) and 128 keys a tile in
+    bf16; D = 112 runs the bf16 kernel on 128 columns padded by TMA's zero
+    fill; GQA 6/2."""
+    q, k, v = _qkv(7 * S + D, 2, 6, 2, S, D, dtype, dev)
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    want = ops.flash_attention(q, k, v, causal=causal, backend="torch")
+    assert ops.LAUNCHES["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_at_a_path_shape(dev, dtype):
+    """zamba2-7b's shared block at S = 4096: q, k, v [1, 8, 4096, 112]
+    (8 of its 32 heads), causal: 32 query tiles of 128 rows in bf16, 64
+    key tiles in fp32."""
+    q, k, v = _qkv(4096, 1, 8, 8, 4096, 112, dtype, dev)
+    got = ops.flash_attention(q, k, v)
+    want = ops.flash_attention(q, k, v, backend="torch")
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
 def test_flash_attention_kernel_refuses_what_it_does_not_take(dev):
     q, k, v = _qkv(0, 1, 4, 2, 64, 64, torch.float32, dev)
     with pytest.raises(ValueError, match="contiguous"):
@@ -461,6 +493,20 @@ def test_ssd_scan_kernel_other_chunks_and_widths(dev, S, chunk, P, N):
     x, a, b, c = _ssd_inputs(S + P, 2, S, 3, P, N, dev)
     got = ops.ssd_scan(x, a, b, c, chunk=chunk)
     want = ops.ssd_scan(x, a, b, c, chunk=chunk, backend="torch")
+    torch.testing.assert_close(got, want, rtol=SSD_TOL, atol=SSD_TOL)
+
+
+@pytest.mark.parametrize("S", [128, 33 * 128])
+def test_ssd_scan_kernel_one_and_33_chunks(dev, S):
+    """zamba2-7b's heads (H = 112, P = N = 64): one chunk, where the state
+    stays zero, and 33, where it crosses 32 chunk borders and the chunk
+    loads run a stage ahead of the products."""
+    x, a, b, c = _ssd_inputs(S + 1, 2, S, 112, 64, 64, dev)
+    ops.reset_launches()
+    got = ops.ssd_scan(x, a, b, c)
+    assert ops.LAUNCHES["ssd_scan"] == 1
+    want = ops.ssd_scan(x, a, b, c, backend="torch")
+    assert got.shape == x.shape and bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, want, rtol=SSD_TOL, atol=SSD_TOL)
 
 
