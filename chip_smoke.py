@@ -87,6 +87,13 @@ Steps:
      freed), the kernel path within 2x the plain path's difference;
      stage times and peak memory.
 
+Every profiled run also prints each of the eight ops' device time and
+kernel count (the profiler's kernels summed by the library each op
+builds), and every dht_insert row its rounds (all in one cooperative
+launch) and the keys still pending after round 1; its bytes
+bound counts the key lanes of the valid rows only, with the bound that
+counts every row's key lanes beside it in the log.
+
 Any failure raises (non-zero exit, no result).  The line before the last
 is one JSON object with a record per kernel, path and call site (`path`
 names the main path whose shapes and launch counts it carries; the
@@ -321,9 +328,18 @@ def bound(name, args, kw, ops, row) -> tuple:
         nbytes = 13 * n + 9 * n_valid + 4
         nops = n_valid * 40
     elif name == "dht_insert":
+        # valid read once, slots written once, the key lanes of the valid
+        # rows only, the table read and the new table written
         cap, n = args[0].numel(), args[4].numel()
-        nbytes = 13 * n + 18 * cap + 8
-        nops = int(args[6].sum()) * 40
+        n_valid = int(args[6].sum())
+        nbytes = n + 4 * n + 8 * n_valid + 18 * cap + 8
+        nops = n_valid * 40
+        every_row = 13 * n + 18 * cap + 8  # with every row's key lanes
+        log(f"  {row}: {n} rows, {n_valid} valid, cap {cap}: bytes bound "
+            f"n + 4 n + 8 n_valid + 18 cap + 8 = {nbytes} "
+            f"({nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms); with every row's "
+            f"key lanes 13 n + 18 cap + 8 = {every_row} "
+            f"({every_row / HBM_BYTES_PER_S * 1e3:.4f} ms)")
     elif name == "seed_probe":
         bases, lengths = args[0], args[1]
         t = args[2:6]
@@ -371,11 +387,20 @@ def hold_against_plain(row, call, ops, launches, path):
     want = fn(*cargs, **ckw, backend="torch")
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
+    insert = {}
+    if name == "dht_insert":  # the kernel's own counters
+        c = ops.LAST_INSERT
+        insert = dict(valid_keys=c["valid"], rounds=c["rounds"],
+                      pending_after_round_1=c["pending_after_round_1"])
     err = max_abs_err(got, want)
     if err != 0:
         raise AssertionError(f"{row}: kernel != plain version "
                              f"(max abs err {err})")
     del got, want
+    if insert:
+        log(f"  {row}: {insert['valid_keys']} valid keys, "
+            f"{insert['rounds']} rounds in one launch, "
+            f"{insert['pending_after_round_1']} keys pending after round 1")
     ms = median_ms(lambda: fn(*cargs, **ckw))
     plain_ms = median_ms(lambda: fn(*cargs, **ckw, backend="torch"))
     b_ms, b_by = bound(name, cargs, ckw, ops, row)
@@ -386,7 +411,7 @@ def hold_against_plain(row, call, ops, launches, path):
     return dict(
         name=row, route="cuda", source=source, replaces=replaces,
         launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, path=path)
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, path=path, **insert)
 
 
 def n50(lengths) -> int:
@@ -493,10 +518,38 @@ def run_assemble(Assembler, Local, plan, reads, ops, label):
         StageClock(ops, "mer_walk", assemble_label), label, "assemble")
 
 
+# kernel function name -> the op whose library builds it (`kernel_ops`)
+KERNEL_OPS: dict = {}
+
+
+def kernel_ops(build) -> dict:
+    """{kernel function: op}: every kernel each op's library builds (its
+    -Xptxas -v report, kept beside the library, so a build from an
+    earlier process counts too), dht_probe's split between dht_lookup and
+    dht_insert by name."""
+    names = {}
+    for lib, text in build.last_build().get("logs", {}).items():
+        for fn in build.ptxas_report(text):
+            m = re.search(r"(\w+_kernel)\b", fn)
+            if not m:
+                continue
+            op = lib
+            if lib == "dht_probe":
+                op = "dht_lookup" if "lookup" in m.group(1) else "dht_insert"
+            names[m.group(1)] = op
+    missing = [op for op in KERNELS if op not in names.values()]
+    if missing:
+        raise AssertionError(f"no kernel names for {missing} in the build "
+                             f"report")
+    return names
+
+
 def profile(fn, title, top=12):
     """Device time over one call of fn(): the device's busy share of the
-    wall time (one stream, so kernels do not overlap), then the kernels
-    and the PyTorch operators that take the most of it."""
+    wall time (one stream, so kernels do not overlap), each of the eight
+    ops' device time and kernel count (the profiler's kernels summed by
+    the library each op builds), then the kernels and the PyTorch
+    operators that take the most of it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -511,6 +564,16 @@ def profile(fn, title, top=12):
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
     log(f"profiled {title}: wall {wall:.3f} s, device busy {busy:.3f} s "
         f"({100 * busy / wall:.1f}%, idle {100 * (1 - busy / wall):.1f}%)")
+    per_op = {op: [0.0, 0] for op in KERNELS}
+    for e in kernels:
+        m = re.search(r"(\w+_kernel)\b", e.key)
+        op = KERNEL_OPS.get(m.group(1)) if m else None
+        if op:
+            per_op[op][0] += e.self_device_time_total / 1e3
+            per_op[op][1] += e.count
+    log(f"  the eight ops' device time in {title}: " + "; ".join(
+        f"{op} {ms:.3f} ms in {n} kernels" for op, (ms, n) in
+        per_op.items()))
     operators = [e for e in events if e.device_type == DeviceType.CPU
                  and e.self_device_time_total > 0]
     for name, rows in (("kernels", kernels), ("operators", operators)):
@@ -1609,6 +1672,7 @@ def main(argv=None) -> int:
     log(f"kernel build: {time.perf_counter() - t0:.1f} s "
         f"(nvcc, parallel: {rep.get('compiled')})")
     tensor_core_report(build)
+    KERNEL_OPS.update(kernel_ops(build))
 
     t0 = time.perf_counter()
     comm = mgsim.sample_community(0, num_genomes=args.num_genomes,

@@ -5,7 +5,8 @@ library with a plain C interface (`extern "C"` launchers that take raw
 pointers, sizes and the CUDA stream, and return a cudaError_t).  All
 sources compile in parallel at first use, for `sm_90a` (the H100), into
 `kernels/_build/` (git-ignored); a library is reused while the hash of its
-sources and flags is unchanged.  No torch headers are involved, so a build
+sources and flags is unchanged (its nvcc output, with the `-Xptxas -v`
+report, is kept beside it).  No torch headers are involved, so a build
 takes seconds.  A failed build raises with the compiler's output.
 
     from repro_torch.kernels import build
@@ -47,8 +48,10 @@ SIGNATURES = {
     },
     "dht_probe": {
         "dht_lookup_launch": [_P, _P, _P, _P, _L, _P, _P, _P, _L, _P, _P],
-        "dht_insert_launch": [_P, _P, _P, _P, _L, _P, _P, _P, _L]
-        + [_P] * 8 + [_P],
+        "dht_insert_counter_names": [],
+        "dht_insert_count_launch": [_P, _L, _P, _P],
+        "dht_insert_launch": [_P] * 8 + [_L, _P, _P, _P, _L, _P, _P, _P,
+                                         _L, _P, _P],
     },
     "seed_probe": {
         "seed_probe_max_seeds": [],
@@ -70,6 +73,9 @@ SIGNATURES = {
         "ssd_scan_launch": [_P] * 5 + [_I] * 6 + [_P],
     },
 }
+
+# C functions that return a string (the others return an int)
+STRING_RESULTS = {"dht_insert_counter_names"}
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -106,10 +112,15 @@ def _bind(name: str, path: Path) -> ctypes.CDLL:
     for fn, argtypes in SIGNATURES[name].items():
         f = getattr(lib, fn)
         f.argtypes = argtypes
-        f.restype = ctypes.c_int
+        f.restype = ctypes.c_char_p if fn in STRING_RESULTS else ctypes.c_int
     lib.repro_error_string.argtypes = [ctypes.c_int]
     lib.repro_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _log_path(so: Path) -> Path:
+    """Where the nvcc output of a built library is kept, beside it."""
+    return so.with_suffix(".log")
 
 
 def build_all() -> dict:
@@ -123,7 +134,7 @@ def build_all() -> dict:
         outs = {n: BUILD_DIR / f"{n}-{_digest(n)}.so" for n in todo}
         procs = {}
         for n in todo:
-            if outs[n].exists():
+            if outs[n].exists() and _log_path(outs[n]).exists():
                 continue
             tmp = outs[n].with_suffix(".tmp.so")
             cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
@@ -137,15 +148,17 @@ def build_all() -> dict:
             if proc.returncode != 0:
                 failed.append(n)
             else:
+                _log_path(outs[n]).write_text(logs[n])
                 tmp.replace(outs[n])
         if failed:
             raise RuntimeError(
                 "nvcc failed for " + ", ".join(failed) + ":\n"
                 + "\n".join(logs[n] for n in failed))
+        logs = {n: _log_path(outs[n]).read_text() for n in todo}
         for n in todo:
             _libs[n] = _bind(n, outs[n])
         _report.update(seconds=time.perf_counter() - t0, compiled=list(procs),
-                       log="\n".join(logs.values()))
+                       log="\n".join(logs.values()), logs=logs)
         return _libs
 
 
@@ -155,7 +168,10 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def last_build() -> dict:
-    """{'seconds', 'compiled', 'log'} of the last build_all that compiled."""
+    """{'seconds', 'compiled', 'log', 'logs'} of the last build_all that
+    bound libraries: 'compiled' names those it compiled, 'logs' holds each
+    library's nvcc output (kept beside its .so, so a library built by an
+    earlier process reports too) and 'log' all of them."""
     return dict(_report)
 
 

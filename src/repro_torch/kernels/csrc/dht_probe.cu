@@ -9,31 +9,84 @@
 // capacity).  Bound: memory latency of the dependent probe loads; the bytes
 // are ~9 per probe step plus 13 per query.
 //
-// dht_insert: bulk-synchronous claim rounds over the whole key batch.  The
-// race is global, so keys cannot be tiled inside a block: which key wins a
-// slot decides where later keys land.  Each round is two launches, so the
-// launch boundary is the grid-wide barrier:
-//   claim    every pending key records, in per-key scratch, whether its
-//            slot was used and held its own key at round start, and bids
-//            atomicMax(owner[slot], key index) if the slot was empty;
-//   resolve  from the recorded flags only (the table is never re-read):
-//            the highest bidder writes the slot and resets owner to -1; a
-//            key that met itself is done (dedupe); a key that met a
-//            different key advances one slot; a race loser stays and
-//            retries the same slot next round.
-// A key that has probed cap slots is exhausted and overflows alone.  The
-// resolve pass counts keys still pending into a device counter, read back
-// every kCheckEvery rounds; extra rounds are no-ops.  The rounds run over a
-// worklist of the valid keys (built by the init pass), so a batch that is
-// mostly invalid rows (the seed-index build: ~2% valid) costs rounds over
-// its valid keys only.  Bound: latency of ~2 launches per round; each round
-// touches ~14 bytes per valid key.
+// dht_insert: bulk-synchronous claim rounds.  The race is global, so keys
+// cannot be tiled inside a block: which key wins a slot decides where later
+// keys land.  Per round every pending key looks at its slot as the table
+// stood at the round's start: a slot holding the key itself finishes it
+// (dedupe); keys on an empty slot race and the highest batch index wins and
+// writes it; a key on a slot holding a different key advances one slot; a
+// race loser retries the same slot next round.  A key that has probed cap
+// slots is exhausted (slot -1) and stops no one else.
+//
+// Bound on the H100: bytes for the streaming pass over the batch (valid
+// read, slots written: 5 bytes a row) and the table copy; the rounds after
+// it are latency-bound chains of dependent gathers and atomics over the
+// valid keys only.  The design:
+//   * one cooperative launch runs everything: the new table (a copy of the
+//     input, owner -1), a streaming pass over the n rows (16-byte loads of
+//     `valid`, 16-byte stores of slot -1) that appends each valid row's
+//     batch index to a compact worklist, then all rounds, with grid
+//     barriers between claim and resolve; the pending count lives on the
+//     device and the host reads nothing until the end.  The next lists
+//     hold batch index and slot; round 1 hashes the key it gathers anyway;
+//   * the worklist shrinks: claim finishes the keys that met themselves,
+//     moves those that met another key to the next list, and puts the
+//     empty-slot bidders on a bid list; resolve reads the bid list only,
+//     writes the winners, finishes the losers whose winner holds their own
+//     key (a duplicated batch: the reference finishes them next round on
+//     that slot, where they change nothing else) and appends the other
+//     losers to the next list.  A round costs O(pending keys), and scratch
+//     is 24 bytes a valid key, not per-row state for every row;
+//   * every store writes runs: the slot fill goes lane after lane, and list
+//     appends are placed with ballots, one atomic per block and tile;
+//   * each thread takes 4 entries a tile, their loads issued stage by stage
+//     before any store, so the dependent gathers overlap;
+//   * once at most four tiles of keys pend, block 0 finishes the rounds
+//     alone with block barriers (the long tail of a loaded table's probe
+//     chains) and the other blocks leave;
+//   * probes are not stored: a pending key has probed (slot - h0) & (cap-1)
+//     slots, h0 = hash & (cap-1), and is exhausted when its next slot is h0.
+// Bids use the batch index, so the winners are the reference's and the
+// order of the worklist never matters.  owner[slot] is not reset: a slot
+// that saw bids is used from then on, and no key bids on a used slot.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kCheckEvery = 4;
+
+// dht_insert
+constexpr int kInsertThreads = 256;
+constexpr int kInsertWarps = kInsertThreads / 32;
+constexpr int kItems = 4;                          // worklist entries a thread takes
+constexpr int kTile = kInsertThreads * kItems;     // ... and a block
+constexpr int kRowsPerThread = 16;                 // streaming pass: one 16-byte load
+constexpr int kStreamTile = kInsertThreads * kRowsPerThread;
+constexpr int kSoloKeys = 4 * kTile;               // block 0 alone at or below
+
+// Device counters of one insert (int32, zeroed by the caller), in order,
+// and the names the wrapper reads them by (dht_insert_counter_names).
+#define INSERT_COUNTERS(X)                                           \
+  X(kValid, valid)          /* valid rows (the count pass) */        \
+  X(kList, list0)           /* kList + round % 3: keys pending */    \
+  X(kList1, list1)                                                   \
+  X(kList2, list2)                                                   \
+  X(kBid, bid0)             /* kBid + round % 2: bidders */          \
+  X(kBid1, bid1)                                                     \
+  X(kError, error)          /* 1 = the rounds did not converge */    \
+  X(kRounds, rounds)        /* rounds run */                         \
+  X(kAfterFirst, pending_after_round_1)
+
+enum Counter {
+#define X(id, name) id,
+  INSERT_COUNTERS(X)
+#undef X
+  kCounters
+};
 
 __global__ void lookup_kernel(const uint32_t* __restrict__ slot_hi,
                               const uint32_t* __restrict__ slot_lo,
@@ -54,122 +107,372 @@ __global__ void lookup_kernel(const uint32_t* __restrict__ slot_hi,
   out[i] = result;
 }
 
-__global__ void insert_init_kernel(const uint32_t* __restrict__ khi,
-                                   const uint32_t* __restrict__ klo,
-                                   const uint8_t* __restrict__ kvalid,
-                                   long long n, uint32_t cap_mask,
-                                   uint8_t* __restrict__ done,
-                                   int32_t* __restrict__ attempt,
-                                   int32_t* __restrict__ probes,
-                                   int32_t* __restrict__ work,
-                                   int32_t* __restrict__ n_work) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool valid = i < n && kvalid[i];
-  if (i < n) {
-    done[i] = !valid;
-    attempt[i] = (int32_t)(repro::kmer_hash(khi[i], klo[i]) & cap_mask);
-    probes[i] = 0;
-  }
-  // append the valid keys to the worklist, one atomic per warp; the order
-  // of the list does not matter, a key bids with its own batch index
-  const unsigned lane = threadIdx.x & 31;
-  const unsigned votes = __ballot_sync(0xffffffffu, valid);
-  int32_t base = 0;
-  if (lane == 0 && votes) base = atomicAdd(n_work, __popc(votes));
-  base = __shfl_sync(0xffffffffu, base, 0);
-  if (valid) work[base + __popc(votes & ((1u << lane) - 1))] = (int32_t)i;
-}
-
-// flags bits: 1 = pending this round, 2 = slot used, 4 = slot holds the key
-__global__ void insert_claim_kernel(const uint32_t* __restrict__ khi,
-                                    const uint32_t* __restrict__ klo,
-                                    long long n, long long cap,
-                                    const uint32_t* __restrict__ slot_hi,
-                                    const uint32_t* __restrict__ slot_lo,
-                                    const uint8_t* __restrict__ used,
-                                    const uint8_t* __restrict__ done,
-                                    const int32_t* __restrict__ attempt,
-                                    const int32_t* __restrict__ probes,
-                                    uint8_t* __restrict__ flags,
-                                    int32_t* __restrict__ owner,
-                                    const int32_t* __restrict__ work) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n) return;
-  const int32_t i = work[t];
-  if (done[i] || probes[i] >= cap) {
-    flags[i] = 0;
-    return;
-  }
-  const int32_t a = attempt[i];
-  const bool cur_used = used[a];
-  const bool cur_match = cur_used && slot_hi[a] == khi[i] && slot_lo[a] == klo[i];
-  flags[i] = 1 | (cur_used ? 2 : 0) | (cur_match ? 4 : 0);
-  if (!cur_used) atomicMax(owner + a, i);
-}
-
-__global__ void insert_resolve_kernel(const uint32_t* __restrict__ khi,
-                                      const uint32_t* __restrict__ klo,
-                                      long long n, long long cap,
-                                      uint32_t cap_mask,
-                                      uint32_t* __restrict__ slot_hi,
-                                      uint32_t* __restrict__ slot_lo,
-                                      uint8_t* __restrict__ used,
-                                      uint8_t* __restrict__ done,
-                                      int32_t* __restrict__ attempt,
-                                      int32_t* __restrict__ probes,
-                                      const uint8_t* __restrict__ flags,
-                                      int32_t* __restrict__ owner,
-                                      int32_t* __restrict__ pending,
-                                      const int32_t* __restrict__ work) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const int32_t i = t < n ? work[t] : 0;
-  bool still = false;
-  if (t < n && (flags[i] & 1)) {
-    const uint8_t f = flags[i];
-    const bool cur_used = f & 2;
-    const bool cur_match = f & 4;
-    const int32_t a = attempt[i];
-    bool fin = cur_match;  // dedupe against the key already in the slot
-    // Only the winner resets owner, after reading it; a loser reads either
-    // the winner's index or -1, never its own.
-    if (!cur_used && owner[a] == i) {
-      slot_hi[a] = khi[i];
-      slot_lo[a] = klo[i];
-      used[a] = 1;
-      owner[a] = -1;
-      fin = true;
+// Valid rows of the batch: four 16-byte loads a thread in flight, lane
+// after lane, and one atomic per block.
+__global__ void insert_count_kernel(const uint8_t* __restrict__ kvalid,
+                                    long long n, int32_t* __restrict__ ctr) {
+  __shared__ int warp_sums[kThreads / 32];
+  const bool vec = ((uintptr_t)kvalid & 15) == 0;
+  const long long chunks = (n + 15) / 16;
+  int c = 0;
+  for (long long c0 = (long long)blockIdx.x * blockDim.x * 4; c0 < chunks;
+       c0 += (long long)gridDim.x * blockDim.x * 4) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const long long r0 = 16 * (c0 + q * blockDim.x + threadIdx.x);
+      if (vec && r0 + 16 <= n) {
+        const uint4 w = __ldcs((const uint4*)(kvalid + r0));
+        c += (__popc(__vcmpne4(w.x, 0u)) + __popc(__vcmpne4(w.y, 0u)) +
+              __popc(__vcmpne4(w.z, 0u)) + __popc(__vcmpne4(w.w, 0u))) >> 3;
+      } else {
+        for (long long i = r0; i < n && i < r0 + 16; ++i) c += kvalid[i] != 0;
+      }
     }
-    if (fin) {
-      done[i] = 1;
-    } else if (cur_used) {  // occupied by a different key: advance
-      attempt[i] = (int32_t)((uint32_t)(a + 1) & cap_mask);
-      const int32_t p = probes[i] + 1;
-      probes[i] = p;
-      still = p < cap;
-    } else {  // lost the race: retry the same slot
-      still = true;
-    }
-  }
-  const unsigned votes = __ballot_sync(0xffffffffu, still);
-  if ((threadIdx.x & 31) == 0 && votes) atomicAdd(pending, __popc(votes));
-}
-
-__global__ void insert_finish_kernel(const uint8_t* __restrict__ kvalid,
-                                     long long n,
-                                     const uint8_t* __restrict__ done,
-                                     const int32_t* __restrict__ attempt,
-                                     const int32_t* __restrict__ probes,
-                                     int32_t* __restrict__ slots,
-                                     int32_t* __restrict__ max_probe) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  int32_t p = 0;
-  if (i < n) {
-    slots[i] = (kvalid[i] && done[i]) ? attempt[i] : -1;
-    p = probes[i];
   }
   for (int off = 16; off > 0; off >>= 1)
-    p = max(p, __shfl_xor_sync(0xffffffffu, p, off));
-  if ((threadIdx.x & 31) == 0 && p > 0) atomicMax(max_probe, p);
+    c += __shfl_xor_sync(0xffffffffu, c, off);
+  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = c;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int s = 0;
+    for (int w = 0; w < kThreads / 32; ++w) s += warp_sums[w];
+    if (s) atomicAdd(ctr, s);
+  }
+}
+
+struct Table {  // the input table, copied into the output one
+  const uint32_t* slot_hi;
+  const uint32_t* slot_lo;
+  const uint8_t* used;
+  const int32_t* max_probe;
+};
+
+struct Worklist {
+  int32_t* idx;  // batch index of the key
+  int32_t* at;   // the slot it looks at
+};
+
+// Reserves room for each thread's entries in two lists (counts a and b,
+// packed as a | b << 16; a block's total stays below 2^16): a block-wide
+// exclusive scan and one atomicAdd per list.  Returns this thread's first
+// position in each list.  Every thread of the block calls it; the callers
+// pass each warp's total on lane 0 and 0 elsewhere, and place the warp's
+// entries with ballots, so that each store instruction writes one run.
+__device__ __forceinline__ int2 block_reserve(int packed, int32_t* ctr_a,
+                                              int32_t* ctr_b, int* sh) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();  // sh is reused tile after tile
+  int x = packed;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) sh[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    const int w = lane < kInsertWarps ? sh[lane] : 0;
+    int s = w;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, s, o);
+      if (lane >= o) s += y;
+    }
+    if (lane < kInsertWarps) sh[lane] = s - w;
+    if (lane == 31) {
+      const int ta = s & 0xFFFF, tb = s >> 16;
+      sh[kInsertWarps] = ta ? atomicAdd(ctr_a, ta) : 0;
+      sh[kInsertWarps + 1] = tb ? atomicAdd(ctr_b, tb) : 0;
+    }
+  }
+  __syncthreads();
+  const int ex = sh[warp] + x - packed;
+  return make_int2(sh[kInsertWarps] + (ex & 0xFFFF),
+                   sh[kInsertWarps + 1] + (ex >> 16));
+}
+
+__device__ __forceinline__ uint32_t home(uint32_t hi, uint32_t lo,
+                                         uint32_t cap_mask) {
+  return repro::kmer_hash(hi, lo) & cap_mask;
+}
+
+// The whole insert in one cooperative launch.  Table arrays, owner, the
+// lists and the counters change during the kernel: they are read through
+// L2 (__ldcg), never through the non-coherent L1 or read-only paths.  Each
+// thread takes kItems entries of a tile stage by stage (all list loads,
+// then all slot loads, then the dependent loads, then the stores), so the
+// items' load chains overlap.
+__global__ void __launch_bounds__(kInsertThreads, 3)
+    insert_kernel(Table in, const uint32_t* __restrict__ khi,
+                  const uint32_t* __restrict__ klo,
+                  const uint8_t* __restrict__ kvalid, long long n,
+                  long long cap, uint32_t* slot_hi, uint32_t* slot_lo,
+                  uint8_t* used, int32_t* owner, int32_t* max_probe,
+                  int32_t* slots, Worklist list0, Worklist list1,
+                  Worklist bids, int32_t* ctr) {
+  __shared__ int sh[kInsertWarps + 2];
+  cg::grid_group grid = cg::this_grid();
+  const uint32_t cap_mask = (uint32_t)(cap - 1);
+  const int tid = threadIdx.x;
+  const bool stats = blockIdx.x == 0 && tid == 0;  // keeps the counters
+  uint32_t pmax = 0;  // this thread's most probes of a finished key
+
+  // ---- the new table: a copy of the input; owner -1 ----
+  {
+    const long long stride = (long long)gridDim.x * kInsertThreads;
+    const long long first = (long long)blockIdx.x * kInsertThreads + tid;
+    const bool vec16 = (cap & 15) == 0 &&
+                       (((uintptr_t)in.slot_hi | (uintptr_t)in.slot_lo |
+                         (uintptr_t)in.used) & 15) == 0;
+    if (vec16) {  // 16-byte words: four slots of the key lanes, 16 of used
+      for (long long q = first; q < cap / 4; q += stride) {
+        ((uint4*)slot_hi)[q] = __ldcs((const uint4*)in.slot_hi + q);
+        ((uint4*)slot_lo)[q] = __ldcs((const uint4*)in.slot_lo + q);
+        ((int4*)owner)[q] = make_int4(-1, -1, -1, -1);
+        if (q < cap / 16) ((uint4*)used)[q] = __ldcs((const uint4*)in.used + q);
+      }
+    } else {
+      for (long long a = first; a < cap; a += stride) {
+        slot_hi[a] = in.slot_hi[a];
+        slot_lo[a] = in.slot_lo[a];
+        used[a] = in.used[a];
+        owner[a] = -1;
+      }
+    }
+    if (stats) *max_probe = *in.max_probe;
+  }
+
+  // ---- streaming pass: slot -1 for every row, valid rows to list 0 ----
+  // Its loads and stores are marked evict-first: the rounds want the table
+  // in L2, not the stream.  A thread loads 16 rows' flags; the warp reads
+  // them back from shared memory a row per lane (rows L, L + 32, ... of
+  // its 512), so the list is in row order and each store writes one run.
+  __shared__ __align__(16) uint8_t flags[kStreamTile];
+  const int lane = tid & 31, warp = tid >> 5;
+  const unsigned lanes_below = (1u << lane) - 1;
+  const bool vec = ((uintptr_t)kvalid & 15) == 0;
+  uint8_t* wflags = flags + 32 * kRowsPerThread * warp;  // the warp's rows
+  for (long long t = blockIdx.x; t * kStreamTile < n; t += gridDim.x) {
+    const long long tile0 = t * kStreamTile;
+    const long long w0 = tile0 + 32 * kRowsPerThread * warp;
+    const long long r0 = tile0 + (long long)tid * kRowsPerThread;
+    __syncwarp();  // the warp's flags of the last tile are read
+    uint4 w = make_uint4(0, 0, 0, 0);
+    if (vec && tile0 + kStreamTile <= n) {
+      w = __ldcs((const uint4*)(kvalid + r0));
+      int4* s4 = (int4*)(slots + w0);  // lane after lane
+#pragma unroll
+      for (int q = 0; q < kRowsPerThread / 4; ++q)
+        __stcs(s4 + 32 * q + lane, make_int4(-1, -1, -1, -1));
+    } else {
+      uint32_t words[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int j = 0; j < kRowsPerThread; ++j) {
+        if (r0 + j < n) {
+          words[j >> 2] |= (uint32_t)kvalid[r0 + j] << (8 * (j & 3));
+          slots[r0 + j] = -1;
+        }
+      }
+      w = make_uint4(words[0], words[1], words[2], words[3]);
+    }
+    ((uint4*)flags)[tid] = w;
+    if (!__syncthreads_or(w.x | w.y | w.z | w.w)) continue;  // none valid
+    uint32_t bits = 0;  // bit j: row w0 + lane + 32 j is valid
+#pragma unroll
+    for (int j = 0; j < kRowsPerThread; ++j)
+      bits |= (uint32_t)(wflags[lane + 32 * j] != 0) << j;
+    int total = 0;
+#pragma unroll
+    for (int j = 0; j < kRowsPerThread; ++j)
+      total += __popc(__ballot_sync(0xffffffffu, (bits >> j) & 1));
+    int p = block_reserve(lane == 0 ? total : 0, ctr + kList, ctr + kList, sh).x;
+    p = __shfl_sync(0xffffffffu, p, 0);
+#pragma unroll
+    for (int j = 0; j < kRowsPerThread; ++j) {
+      const unsigned m = __ballot_sync(0xffffffffu, (bits >> j) & 1);
+      if ((bits >> j) & 1)
+        list0.idx[p + __popc(m & lanes_below)] = (int32_t)(w0 + lane + 32 * j);
+      p += __popc(m);
+    }
+  }
+  grid.sync();
+
+  // ---- the rounds ----
+  // Each key finishes within 2 rounds per slot it probes, and probes at
+  // most cap slots.
+  const long long max_rounds = 2 * cap + 2;
+  bool solo = false;  // block 0 alone, with block barriers
+  int nblk = gridDim.x;
+  for (long long r = 0;; ++r) {
+    const Worklist cur = (r & 1) ? list1 : list0;
+    const Worklist nxt = (r & 1) ? list0 : list1;
+    int32_t* n_next = ctr + kList + (r + 1) % 3;
+    int32_t* n_bid = ctr + kBid + (r & 1);
+
+    // claim: against the table as it stood at the round's start.  The list
+    // is taken from its end: higher batch indices bid first, and a copy of
+    // a key that finds a higher bid on its slot already skips the atomic
+    const long long ncur = __ldcg(ctr + kList + r % 3);
+    if (ncur == 0) break;  // no valid key at all
+    for (long long base = (long long)blockIdx.x * kTile; base < ncur;
+         base += (long long)nblk * kTile) {
+      int32_t ii[kItems];
+      uint32_t aa[kItems], kh[kItems], kl[kItems], sh_hi[kItems], sh_lo[kItems];
+      bool live[kItems], u[kItems];
+#pragma unroll
+      for (int j = 0; j < kItems; ++j) {
+        const long long e = ncur - 1 - (base + j * kInsertThreads + tid);
+        live[j] = e >= 0;
+        ii[j] = live[j] ? __ldcg(cur.idx + e) : 0;
+        if (r == 0) {  // list 0 holds no slots: each key starts at home
+          kh[j] = live[j] ? khi[ii[j]] : 0;
+          kl[j] = live[j] ? klo[ii[j]] : 0;
+          aa[j] = home(kh[j], kl[j], cap_mask);
+        } else {
+          aa[j] = live[j] ? (uint32_t)__ldcg(cur.at + e) : 0;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kItems; ++j) u[j] = live[j] && __ldcg(used + aa[j]);
+#pragma unroll
+      for (int j = 0; j < kItems; ++j) {
+        if (u[j]) {
+          if (r != 0) kh[j] = khi[ii[j]], kl[j] = klo[ii[j]];
+          sh_hi[j] = __ldcg(slot_hi + aa[j]);
+          sh_lo[j] = __ldcg(slot_lo + aa[j]);
+        }
+      }
+      int kind[kItems];  // 0 finished, 1 next list, 2 bid list
+#pragma unroll
+      for (int j = 0; j < kItems; ++j) {
+        kind[j] = 0;
+        if (u[j]) {
+          const uint32_t h0 = home(kh[j], kl[j], cap_mask);
+          if (sh_hi[j] == kh[j] && sh_lo[j] == kl[j]) {
+            slots[ii[j]] = (int32_t)aa[j];  // met itself
+            pmax = max(pmax, (aa[j] - h0) & cap_mask);
+          } else if (((aa[j] + 1) & cap_mask) == h0) {
+            pmax = max(pmax, (uint32_t)cap);  // exhausted: stays -1
+          } else {
+            aa[j] = (aa[j] + 1) & cap_mask;
+            kind[j] = 1;
+          }
+        } else if (live[j]) {
+          if (__ldcg(owner + aa[j]) < ii[j]) atomicMax(owner + aa[j], ii[j]);
+          kind[j] = 2;
+        }
+      }
+      int nn = 0, nb = 0;  // the warp's entries for each list
+#pragma unroll
+      for (int j = 0; j < kItems; ++j) {
+        nn += __popc(__ballot_sync(0xffffffffu, kind[j] == 1));
+        nb += __popc(__ballot_sync(0xffffffffu, kind[j] == 2));
+      }
+      int2 p = block_reserve(lane == 0 ? (nn | nb << 16) : 0, n_next, n_bid, sh);
+      p.x = __shfl_sync(0xffffffffu, p.x, 0);
+      p.y = __shfl_sync(0xffffffffu, p.y, 0);
+#pragma unroll
+      for (int j = 0; j < kItems; ++j) {
+        const unsigned mn = __ballot_sync(0xffffffffu, kind[j] == 1);
+        const unsigned mb = __ballot_sync(0xffffffffu, kind[j] == 2);
+        if (kind[j] == 1) {
+          const int q = p.x + __popc(mn & lanes_below);
+          nxt.idx[q] = ii[j], nxt.at[q] = (int32_t)aa[j];
+        } else if (kind[j] == 2) {
+          const int q = p.y + __popc(mb & lanes_below);
+          bids.idx[q] = ii[j], bids.at[q] = (int32_t)aa[j];
+        }
+        p.x += __popc(mn);
+        p.y += __popc(mb);
+      }
+    }
+    if (blockIdx.x == 0 && tid == 0) ctr[kBid + ((r + 1) & 1)] = 0;
+    if (solo) __syncthreads(); else grid.sync();
+
+    // resolve: the highest bidder writes the slot.  A loser whose winner
+    // holds the same key finishes on that slot now: next round it would
+    // meet itself there and do nothing else.  The other losers retry it.
+    const long long nbid = __ldcg(n_bid);
+    for (long long base = (long long)blockIdx.x * kTile; base < nbid;
+         base += (long long)nblk * kTile) {
+      int32_t ii[kItems], aa[kItems], own[kItems];
+      bool live[kItems];
+#pragma unroll
+      for (int j = 0; j < kItems; ++j) {
+        const long long e = base + j * kInsertThreads + tid;
+        live[j] = e < nbid;
+        ii[j] = live[j] ? __ldcg(bids.idx + e) : 0;
+        aa[j] = live[j] ? __ldcg(bids.at + e) : 0;
+      }
+#pragma unroll
+      for (int j = 0; j < kItems; ++j)
+        own[j] = live[j] ? __ldcg(owner + aa[j]) : 0;  // >= every bid
+      uint32_t kh[kItems], kl[kItems], wh[kItems], wl[kItems];
+#pragma unroll
+      for (int j = 0; j < kItems; ++j) {
+        if (live[j]) kh[j] = khi[ii[j]], kl[j] = klo[ii[j]];
+        if (live[j] && own[j] != ii[j]) wh[j] = khi[own[j]], wl[j] = klo[own[j]];
+      }
+      bool retry[kItems];
+      int nn = 0;  // the warp's losers that retry
+#pragma unroll
+      for (int j = 0; j < kItems; ++j) {
+        const bool won = live[j] && own[j] == ii[j];
+        const bool twin = live[j] && !won && wh[j] == kh[j] && wl[j] == kl[j];
+        retry[j] = live[j] && !won && !twin;
+        if (won) {
+          slot_hi[aa[j]] = kh[j];
+          slot_lo[aa[j]] = kl[j];
+          used[aa[j]] = 1;
+        }
+        if (won || twin) {
+          slots[ii[j]] = aa[j];
+          pmax = max(pmax, ((uint32_t)aa[j] - home(kh[j], kl[j], cap_mask)) &
+                               cap_mask);
+        }
+        nn += __popc(__ballot_sync(0xffffffffu, retry[j]));
+      }
+      int p = block_reserve(lane == 0 ? nn : 0, n_next, n_next, sh).x;
+      p = __shfl_sync(0xffffffffu, p, 0);
+#pragma unroll
+      for (int j = 0; j < kItems; ++j) {
+        const unsigned m = __ballot_sync(0xffffffffu, retry[j]);
+        if (retry[j]) {
+          const int q = p + __popc(m & lanes_below);
+          nxt.idx[q] = ii[j], nxt.at[q] = aa[j];
+        }
+        p += __popc(m);
+      }
+    }
+    if (blockIdx.x == 0 && tid == 0) ctr[kList + (r + 2) % 3] = 0;
+    if (solo) __syncthreads(); else grid.sync();
+
+    // every thread reads the same count: it changes two rounds later
+    const int32_t left = __ldcg(n_next);
+    if (stats) {
+      if (r == 0) ctr[kAfterFirst] = left;
+      ctr[kRounds] = (int32_t)(r + 1);
+      if (left > 0 && r + 1 > max_rounds) ctr[kError] = 1;
+    }
+    if (left == 0 || r + 1 > max_rounds) break;
+    if (!solo && left <= kSoloKeys) {
+      solo = true;
+      nblk = 1;
+      if (blockIdx.x != 0) break;
+    }
+  }
+
+  // max_probe = max(old, every finished key's probes): one atomic a block
+  for (int off = 16; off > 0; off >>= 1)
+    pmax = max(pmax, __shfl_xor_sync(0xffffffffu, pmax, off));
+  __syncthreads();
+  if ((tid & 31) == 0) sh[tid >> 5] = (int)pmax;
+  __syncthreads();
+  if (tid == 0) {
+    uint32_t m = 0;
+    for (int w = 0; w < kInsertWarps; ++w) m = max(m, (uint32_t)sh[w]);
+    if (m) atomicMax((unsigned int*)max_probe, m);
+  }
 }
 
 inline unsigned blocks_for(long long n) {
@@ -192,71 +495,73 @@ extern "C" int dht_lookup_launch(const void* slot_hi, const void* slot_lo,
   return (int)cudaGetLastError();
 }
 
-// Inserts keys into (slot_hi, slot_lo, used) in place.  Scratch, allocated
-// by the caller: done/flags [n] uint8, attempt/probes/work [n] int32, owner
-// [cap] int32 filled with -1, counters [2] int32 (zeroed).  max_probe [1]
-// holds the old bound on entry and max(old, max probes) on return.  The
-// rounds run over the worklist of valid keys only (claim/resolve index it),
-// while done/attempt/probes stay indexed by batch position.
-extern "C" int dht_insert_launch(void* slot_hi, void* slot_lo, void* used,
+extern "C" const char* dht_insert_counter_names() {
+#define X(id, name) #name " "
+  return INSERT_COUNTERS(X);
+#undef X
+}
+
+// Counts the valid rows into counters[0] (counters zeroed by the caller);
+// the caller reads it back to size the worklists.
+extern "C" int dht_insert_count_launch(const void* kvalid, long long n,
+                                       void* counters, void* stream) {
+  if (n == 0) return 0;
+  const long long chunks = (n + 15) / 16;
+  long long blocks = (chunks + 4 * kThreads - 1) / (4 * kThreads);
+  if (blocks > 1024) blocks = 1024;  // grid-stride: few atomics
+  insert_count_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)kvalid, n, (int32_t*)counters + kValid);
+  return (int)cudaGetLastError();
+}
+
+// Inserts keys into a new table (slot_hi, slot_lo, used, max_probe, which
+// the kernel fills from in_* first), in one cooperative launch.  slots [n]
+// int32 (16-byte aligned) receives each key's slot.  Scratch, allocated by
+// the caller: owner [cap] int32 (the kernel sets it to -1), lists [6, m]
+// int32 for m = the valid count (two worklists and the bid list, each as
+// batch index and slot), counters [kCounters] int32 zeroed.  max_probe [1]
+// ends as max(in_mp, the most probes of any key).  The grid is every block
+// that can be co-resident on the card.  The caller reads counters[kError]
+// after the kernel: 1 = no convergence.
+extern "C" int dht_insert_launch(const void* in_hi, const void* in_lo,
+                                 const void* in_used, const void* in_mp,
+                                 void* slot_hi, void* slot_lo, void* used,
                                  void* max_probe, long long cap,
                                  const void* khi, const void* klo,
                                  const void* kvalid, long long n, void* slots,
-                                 void* done, void* flags, void* attempt,
-                                 void* probes, void* owner, void* work,
+                                 void* owner, void* lists, long long m,
                                  void* counters, void* stream) {
-  if (n == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  const uint32_t cap_mask = (uint32_t)(cap - 1);
-  int32_t* pending = (int32_t*)counters;
-  int32_t* n_work = (int32_t*)counters + 1;
-  insert_init_kernel<<<blocks_for(n), kThreads, 0, s>>>(
-      (const uint32_t*)khi, (const uint32_t*)klo, (const uint8_t*)kvalid, n,
-      cap_mask, (uint8_t*)done, (int32_t*)attempt, (int32_t*)probes,
-      (int32_t*)work, n_work);
-  cudaError_t err = cudaGetLastError();
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, insert_kernel, kInsertThreads, 0);
   if (err != cudaSuccess) return (int)err;
-  int32_t m = 0;
-  err = cudaMemcpyAsync(&m, n_work, sizeof(int32_t), cudaMemcpyDeviceToHost,
-                        s);
-  if (err == cudaSuccess) err = cudaStreamSynchronize(s);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = blocks_for(m);
-  // Each key finishes within 2 rounds per slot it probes, and probes at
-  // most cap slots.
-  const long long max_rounds = 2 * cap + 2 * kCheckEvery;
-  for (long long round = 0; m > 0; round += kCheckEvery) {
-    if (round > max_rounds) return -1;
-    for (int j = 0; j < kCheckEvery; ++j) {
-      err = cudaMemsetAsync(pending, 0, sizeof(int32_t), s);
-      if (err != cudaSuccess) return (int)err;
-      insert_claim_kernel<<<blocks, kThreads, 0, s>>>(
-          (const uint32_t*)khi, (const uint32_t*)klo, m, cap,
-          (const uint32_t*)slot_hi, (const uint32_t*)slot_lo,
-          (const uint8_t*)used, (const uint8_t*)done,
-          (const int32_t*)attempt, (const int32_t*)probes, (uint8_t*)flags,
-          (int32_t*)owner, (const int32_t*)work);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
-      insert_resolve_kernel<<<blocks, kThreads, 0, s>>>(
-          (const uint32_t*)khi, (const uint32_t*)klo, m, cap, cap_mask,
-          (uint32_t*)slot_hi, (uint32_t*)slot_lo, (uint8_t*)used,
-          (uint8_t*)done, (int32_t*)attempt, (int32_t*)probes,
-          (const uint8_t*)flags, (int32_t*)owner, pending,
-          (const int32_t*)work);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
-    }
-    int32_t left = 0;
-    err = cudaMemcpyAsync(&left, pending, sizeof(int32_t),
-                          cudaMemcpyDeviceToHost, s);
-    if (err == cudaSuccess) err = cudaStreamSynchronize(s);
-    if (err != cudaSuccess) return (int)err;
-    if (left == 0) break;
+  int32_t* l = (int32_t*)lists;
+  const long long cap_ll = cap;
+  uint32_t* sh = (uint32_t*)slot_hi;
+  uint32_t* sl = (uint32_t*)slot_lo;
+  uint8_t* u = (uint8_t*)used;
+  int32_t* own = (int32_t*)owner;
+  int32_t* mp = (int32_t*)max_probe;
+  int32_t* sl_out = (int32_t*)slots;
+  Worklist w0{l, l + m}, w1{l + 2 * m, l + 3 * m}, wb{l + 4 * m, l + 5 * m};
+  Table in{(const uint32_t*)in_hi, (const uint32_t*)in_lo,
+           (const uint8_t*)in_used, (const int32_t*)in_mp};
+  int32_t* ctr = (int32_t*)counters;
+  void* args[] = {(void*)&in, (void*)&khi, (void*)&klo, (void*)&kvalid, (void*)&n,
+                  (void*)&cap_ll, (void*)&sh, (void*)&sl, (void*)&u,
+                  (void*)&own, (void*)&mp, (void*)&sl_out, (void*)&w0,
+                  (void*)&w1, (void*)&wb, (void*)&ctr};
+  err = cudaLaunchCooperativeKernel(
+      (const void*)insert_kernel, dim3((unsigned)(per_sm * sms)),
+      dim3(kInsertThreads),
+      args, 0, (cudaStream_t)stream);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear the launch error for the next caller
+    return (int)err;
   }
-  insert_finish_kernel<<<blocks_for(n), kThreads, 0, s>>>(
-      (const uint8_t*)kvalid, n, (const uint8_t*)done,
-      (const int32_t*)attempt, (const int32_t*)probes, (int32_t*)slots,
-      (int32_t*)max_probe);
   return (int)cudaGetLastError();
 }

@@ -140,13 +140,22 @@ def dht_lookup(slot_hi, slot_lo, used, max_probe, hi, lo, valid=None, *,
     return out.reshape(hi.shape)
 
 
+# the device counters of the last dht_insert launch, by the names the
+# library gives them (csrc/dht_probe.cu, INSERT_COUNTERS): valid keys,
+# rounds, keys pending after round 1, ...
+LAST_INSERT: dict = {}
+
+
 def dht_insert(slot_hi, slot_lo, used, max_probe, hi, lo, valid, *,
                backend=None):
     """Insert [n] keys with the bulk-synchronous claim rounds.
 
     Returns (slot_hi, slot_lo, used, max_probe, slots): a new table (the
     inputs are not modified), max_probe as a 0-dim int32 tensor, and the
-    slot of each key (-1 if invalid or overflowed).
+    slot of each key (-1 if invalid or overflowed).  On the card a count
+    pass sizes the worklist of valid keys (the host reads the count), and
+    one cooperative launch runs all rounds; its device counters are read
+    back once, after it (`LAST_INSERT`).
     """
     if not _use_kernel(backend, hi):
         return ref.dht_insert_ref(slot_hi, slot_lo, used, max_probe,
@@ -159,24 +168,30 @@ def dht_insert(slot_hi, slot_lo, used, max_probe, hi, lo, valid, *,
     for name, t, dt in (("hi", hi, torch.int32), ("lo", lo, torch.int32),
                         ("valid", valid, torch.bool)):
         _check(name, t, dt, dev)
-    slot_hi, slot_lo, used, mp = (slot_hi.clone(), slot_lo.clone(),
-                                  used.clone(), mp.clone())
+    out = tuple(torch.empty_like(t) for t in (slot_hi, slot_lo, used, mp))
     slots = torch.empty((n,), dtype=torch.int32, device=dev)
-    done = torch.empty((n,), dtype=torch.uint8, device=dev)
-    flags = torch.empty((n,), dtype=torch.uint8, device=dev)
-    attempt = torch.empty((n,), dtype=torch.int32, device=dev)
-    probes = torch.empty((n,), dtype=torch.int32, device=dev)
-    work = torch.empty((n,), dtype=torch.int32, device=dev)
-    owner = torch.full((cap,), -1, dtype=torch.int32, device=dev)
-    counters = torch.zeros((2,), dtype=torch.int32, device=dev)
     lib = build.library("dht_probe")
+    names = lib.dht_insert_counter_names().decode().split()
+    counters = torch.zeros((len(names),), dtype=torch.int32, device=dev)
+    stream = _stream(dev)
+    err = lib.dht_insert_count_launch(_ptr(valid), n, _ptr(counters), stream)
+    if err != 0:
+        raise RuntimeError(f"dht_insert count pass failed: "
+                           f"{lib.repro_error_string(err).decode()}")
+    m = int(counters[0])
+    owner = torch.empty((cap,), dtype=torch.int32, device=dev)
+    lists = torch.empty((6, max(m, 1)), dtype=torch.int32, device=dev)
     err = lib.dht_insert_launch(
-        _ptr(slot_hi), _ptr(slot_lo), _ptr(used), _ptr(mp), cap, _ptr(hi),
-        _ptr(lo), _ptr(valid), n, _ptr(slots), _ptr(done), _ptr(flags),
-        _ptr(attempt), _ptr(probes), _ptr(owner), _ptr(work), _ptr(counters),
-        _stream(dev))
+        _ptr(slot_hi), _ptr(slot_lo), _ptr(used), _ptr(mp), *map(_ptr, out),
+        cap, _ptr(hi), _ptr(lo), _ptr(valid), n, _ptr(slots), _ptr(owner),
+        _ptr(lists), max(m, 1), _ptr(counters), stream)
     _launched("dht_insert", lib, err)
-    return slot_hi, slot_lo, used, mp.reshape(()), slots
+    LAST_INSERT.clear()
+    LAST_INSERT.update(zip(names, counters.tolist()))
+    if LAST_INSERT["error"]:
+        raise RuntimeError(f"dht_insert kernel failed: "
+                           f"{lib.repro_error_string(-1).decode()}")
+    return (*out[:3], out[3].reshape(()), slots)
 
 
 def seed_probe(bases, lengths, slot_hi, slot_lo, used, max_probe,

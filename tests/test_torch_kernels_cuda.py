@@ -29,7 +29,7 @@ from repro_torch.core import dht, kmer, local_assembly
 from repro_torch.core.kmer_analysis import ExtensionPolicy
 from repro_torch.core.types import ReadSet
 from repro_torch.data import mgsim
-from repro_torch.kernels import ops
+from repro_torch.kernels import build, ops
 from repro_torch.stream import batches_from_readset
 
 pytestmark = pytest.mark.cuda
@@ -99,6 +99,111 @@ def test_dht_insert_and_lookup_kernels_equal_plain(dev, n, cap):
     qv = torch.from_numpy(rng.random((2, n)) < 0.8).to(dev)
     _same([ops.dht_lookup(*table, qhi, qlo, qv)],
           [ops.dht_lookup(*table, qhi, qlo, qv, backend="torch")])
+
+
+def _offset(t, by=1):
+    """t as a view that starts `by` elements into a fresh buffer: not
+    16-byte aligned, so the kernels take their scalar edge paths."""
+    buf = torch.empty(t.numel() + by, dtype=t.dtype, device=t.device)
+    buf[by:] = t.reshape(-1)
+    return buf[by:].view(t.shape)
+
+
+@pytest.mark.parametrize("L", [None, 40, 77, 150, 4096])
+@pytest.mark.parametrize("k", [3, 16, 31])
+def test_kmer_extract_kernel_edges_equal_plain(dev, k, L):
+    """Rows of length 0, all-N rows, L = k and L not a multiple of the 4
+    windows a thread takes, R * L not one either, and bases that are not
+    16-byte aligned."""
+    L = k if L is None else L
+    R = 11 if L < 4096 else 3
+    rng = np.random.default_rng(10 * k + L)
+    bases, lengths = _reads(rng, R, L, dev)
+    lengths[0] = 0
+    bases[1] = 4
+    lengths[2] = L
+    bases[2, : L // 3] = 4
+    for b in (bases, _offset(bases)):
+        _same(ops.kmer_extract(b, lengths, k=k),
+              ops.kmer_extract(b, lengths, k=k, backend="torch"))
+
+
+def _insert_case(rng, dev, case):
+    """(table, hi, lo, valid) of one dht_insert case."""
+    if case == "dup90":
+        n, cap, dup, vf = 200_000, 1 << 18, 0.9, 0.95
+    elif case == "no_valid":
+        n, cap, dup, vf = 10_000, 1 << 12, 0.3, 0.0
+    elif case == "sparse_2pct":
+        n, cap, dup, vf = 1 << 22, 1 << 18, 0.3, 0.02
+    elif case == "nearly_full":
+        n, cap, dup, vf = 16_000, 1 << 14, 0.0, 1.0
+    elif case == "exhaust":
+        n, cap, dup, vf = 3000, 1 << 10, 0.1, 1.0
+    else:  # "unaligned": views 1 element into their buffers, n % 16 != 0
+        n, cap, dup, vf = 50_001, 1 << 16, 0.3, 0.9
+    hi, lo = _keys(rng, n, dev, dup_frac=dup)
+    valid = torch.from_numpy(rng.random(n) < vf).to(dev)
+    if case == "unaligned":
+        hi, lo, valid = _offset(hi), _offset(lo), _offset(valid)
+    return dht.empty_table(cap, dev), hi, lo, valid
+
+
+@pytest.mark.parametrize("case", ["dup90", "no_valid", "sparse_2pct",
+                                  "nearly_full", "exhaust", "unaligned"])
+def test_dht_insert_kernel_cases_equal_plain(dev, case):
+    rng = np.random.default_rng(len(case))
+    t0, hi, lo, valid = _insert_case(rng, dev, case)
+    got = ops.dht_insert(*t0, hi, lo, valid)
+    stats = dict(ops.LAST_INSERT)
+    want = ops.dht_insert(*t0, hi, lo, valid, backend="torch")
+    _same(got, want)
+    assert stats["valid"] == int(valid.sum())
+    assert (stats["rounds"] >= 1) == (stats["valid"] > 0)
+    if case in ("nearly_full", "exhaust"):  # the long tail of the rounds
+        assert stats["rounds"] > 10, stats
+    if case == "nearly_full":  # the next batch would take ~2 cap rounds
+        return
+    # the next batch dedupes against the filled table: half its keys are
+    # in it already
+    hi2, lo2 = _keys(rng, hi.numel(), dev)
+    half = hi.numel() // 2
+    hi2[:half], lo2[:half] = hi[:half], lo[:half]
+    frac = float(valid.float().mean())  # the case's share of valid rows
+    valid2 = torch.from_numpy(rng.random(hi.numel()) < frac).to(dev)
+    _same(ops.dht_insert(*got[:4], hi2, lo2, valid2),
+          ops.dht_insert(*want[:4], hi2, lo2, valid2, backend="torch"))
+
+
+def test_dht_insert_raises_when_its_grid_cannot_be_co_resident(
+        dev, monkeypatch):
+    """No shape of the op's inputs can make the cooperative launch fail:
+    the launcher sizes the grid to the blocks this card holds at once.
+    So the library is replaced by one whose launcher returns the
+    runtime's refusal, cudaErrorCooperativeLaunchTooLarge: the op raises,
+    with no launch counted and no other path taken."""
+    rng = np.random.default_rng(5)
+    hi, lo = _keys(rng, 1000, dev)
+    valid = torch.ones(1000, dtype=torch.bool, device=dev)
+    t0 = dht.empty_table(1 << 12, dev)
+    real = build.library("dht_probe")
+
+    class Refusing:
+        def __getattr__(self, name):
+            return getattr(real, name)
+
+        @staticmethod
+        def dht_insert_launch(*args):
+            return 720  # cudaErrorCooperativeLaunchTooLarge
+
+    with monkeypatch.context() as m:
+        m.setattr(build, "library", lambda name: Refusing())
+        before = ops.LAUNCHES["dht_insert"]
+        with pytest.raises(RuntimeError, match="cooperative launch"):
+            ops.dht_insert(*t0, hi, lo, valid)
+        assert ops.LAUNCHES["dht_insert"] == before
+    _same(ops.dht_insert(*t0, hi, lo, valid),
+          ops.dht_insert(*t0, hi, lo, valid, backend="torch"))
 
 
 def _seed_index(rng, dev, capacity, seed_len, C=6, clen=200):
