@@ -15,8 +15,9 @@ Steps:
   1. card name and power limit (nvidia-smi);
   2. build the eight CUDA kernels' libraries from
      src/repro_torch/kernels/csrc (one nvcc each, in parallel); every
-     kernel's registers and spills (-Xptxas -v), and the flash_attention
-     and ssd_scan kernels' tensor-core instructions in the built SASS
+     kernel's registers, stack frame and spills (-Xptxas -v; it fails if
+     sw_extend or seed_probe spills), and the flash_attention and
+     ssd_scan kernels' tensor-core instructions in the built SASS
      (cuobjdump -sass: HGMMA in the bf16 flash kernel, HMMA in the fp32
      flash kernel and ssd_scan; it fails without them);
   3. make the reads (host numpy, timed apart);
@@ -46,8 +47,10 @@ Steps:
      before and read just after: all six kernels launched, sw_extend twice
      per batch of each of the 3 alignment passes; per stage times, stream
      stats, scaffolds, peak memory beside path 2's, the quality floor;
-     once more under torch.profiler; each kernel against its plain
-     version at its largest call on this path (rows `<kernel>_stream`);
+     once more under torch.profiler; each sw_extend call's share of
+     pairs with qlen = 0 (reads without a candidate); each kernel against
+     its plain version at its largest call on this path (rows
+     `<kernel>_stream`);
      the plain path equal to the kernel path; and the streamed run of
      path 2's plan over the same reads equal to path 2's `assemble` in
      scaffold sequences and alive contigs;
@@ -229,6 +232,7 @@ class Recorder:
         self.ops = ops
         self.calls = {}
         self.counts = {}
+        self.no_candidate = []  # each sw_extend call's share of qlen == 0
         self.row = row or (lambda name, args, kw: name)
         self.orig = {name: getattr(ops, name) for name in names}
 
@@ -252,6 +256,8 @@ class Recorder:
                 self.calls[key] = (size, name, args, {
                     k: v for k, v in kw.items() if k != "backend"})
             self.counts[key] = self.counts.get(key, 0) + 1
+            if name == "sw_extend":
+                self.no_candidate.append(float((args[2] == 0).float().mean()))
             return fn(*args, **kw)
         return call
 
@@ -1010,6 +1016,8 @@ def phase_stream(api, ops, reads, comm, path2):
             log(f"warm assemble_stream (recording inputs): "
                 f"{time.perf_counter() - t0:.3f} s")
         rec.check_counts(launches)
+        log(f"sw_extend calls' share of pairs with qlen = 0 (no candidate): "
+            + ", ".join(f"{x:.4f}" for x in rec.no_candidate))
         records = [hold_against_plain(row, call, ops, launches[call[1]],
                                       "stream")
                    for row, call in rec.calls.items()]
@@ -1192,8 +1200,15 @@ def tensor_core_report(build):
     ptxas = build.ptxas_report(build.last_build().get("log", ""))
     for fn, rep in ptxas.items():
         log(f"  ptxas {short(fn)}: {rep.get('registers')} registers, "
+            f"{rep.get('stack_frame', 0)} bytes stack frame, "
             f"{rep.get('spill_stores', 0)} bytes spill stores, "
             f"{rep.get('spill_loads', 0)} bytes spill loads")
+    # the alignment kernels keep a read's seeds and a DP row in registers
+    spilled = {short(fn): rep for fn, rep in ptxas.items()
+               if re.search(r"\b(sw_extend|seed_probe)_kernel", fn)
+               and (rep.get("spill_stores") or rep.get("spill_loads"))}
+    if spilled:
+        raise AssertionError(f"alignment kernels spill: {spilled}")
     for lib in ("flash_attention", "ssd_scan"):
         counts = build.sass_counts(lib)
         if counts is None:

@@ -186,8 +186,9 @@ def _demangle(names: list) -> dict:
 
 
 def ptxas_report(log: str) -> dict:
-    """{kernel: {'registers', 'spill_stores', 'spill_loads'}} (bytes for
-    the spills) from the `-Xptxas -v` lines of a build log."""
+    """{kernel: {'registers', 'stack_frame', 'spill_stores',
+    'spill_loads'}} (bytes for the stack frame and the spills) from the
+    `-Xptxas -v` lines of a build log."""
     report, fn = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -197,11 +198,12 @@ def ptxas_report(log: str) -> dict:
             continue
         if fn is None:
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m:
-            report[fn].update(spill_stores=int(m.group(1)),
-                              spill_loads=int(m.group(2)))
+            report[fn].update(stack_frame=int(m.group(1)),
+                              spill_stores=int(m.group(2)),
+                              spill_loads=int(m.group(3)))
         m = re.search(r"Used (\d+) registers", line)
         if m:
             report[fn]["registers"] = int(m.group(1))

@@ -225,15 +225,15 @@ def seed_probe(bases, lengths, slot_hi, slot_lo, used, max_probe,
                         ("pos", pos, torch.int32), ("flip", flip, torch.bool),
                         ("multi", multi, torch.bool)):
         _check(name, t, dt, dev)
-    pcols = torch.tensor(positions, dtype=torch.int32, device=dev)
+    cols = (ctypes.c_int32 * S)(*positions)  # host array: copied by value
     out_c = torch.empty((R, 2), dtype=torch.int32, device=dev)
     out_s = torch.empty((R, 2), dtype=torch.int32, device=dev)
     out_o = torch.empty((R, 2), dtype=torch.uint8, device=dev)
     err = lib.seed_probe_launch(
         _ptr(bases), _ptr(lengths), R, L, _ptr(slot_hi), _ptr(slot_lo),
         _ptr(used), _ptr(mp), cap, _ptr(contig), _ptr(pos), _ptr(flip),
-        _ptr(multi), _ptr(pcols), S, seed_len, _ptr(out_c), _ptr(out_s),
-        _ptr(out_o), _stream(dev))
+        _ptr(multi), ctypes.addressof(cols), S, seed_len, _ptr(out_c),
+        _ptr(out_s), _ptr(out_o), _stream(dev))
     _launched("seed_probe", lib, err)
     return out_c, out_s, out_o
 
@@ -344,7 +344,7 @@ def sw_extend(query, target, qlen, tlen, *, band: int = 15, match: int = 1,
 
     Returns (best_score, best_qpos, best_tpos), each [B] int32, 1-based DP
     coordinates of the best cell (0 = no positive extension).  Any B; the
-    kernel takes one warp per pair, so there is no block padding to hide.
+    kernel takes one thread per pair and masks a block's ragged end.
     """
     if not _use_kernel(backend, query):
         return ref.sw_extend_ref(query, target, qlen, tlen, band=band,
@@ -354,8 +354,8 @@ def sw_extend(query, target, qlen, tlen, *, band: int = 15, match: int = 1,
     max_band = lib.sw_extend_max_band()
     if not 0 <= band <= max_band:
         raise ValueError(f"sw_extend: band={band}; the kernel holds a band "
-                         f"of 2*band+1 <= 31 cells in one warp (band <= "
-                         f"{max_band})")
+                         f"of 2*band+1 <= 31 cells in one thread's registers "
+                         f"(band <= {max_band})")
     B, QL = query.shape
     TL = target.shape[1]
     if target.shape[0] != B or qlen.shape != (B,) or tlen.shape != (B,):
@@ -370,8 +370,7 @@ def sw_extend(query, target, qlen, tlen, *, band: int = 15, match: int = 1,
                         ("qlen", qlen, torch.int32),
                         ("tlen", tlen, torch.int32)):
         _check(name, t, dt, dev)
-    out = tuple(torch.empty((B,), dtype=torch.int32, device=dev)
-                for _ in range(3))
+    out = torch.empty((3, B), dtype=torch.int32, device=dev).unbind(0)
     err = lib.sw_extend_launch(
         _ptr(query), _ptr(target), _ptr(qlen), _ptr(tlen), B, QL, TL, band,
         match, mismatch, gap, *map(_ptr, out), _stream(dev))

@@ -246,6 +246,90 @@ def test_seed_probe_kernel_equals_plain(dev, seed_len, capacity, R):
                               backend="torch"))
 
 
+def _sampled_reads(rng, contigs, R, L, dev, n_frac=0.02):
+    """Reads of L bases from the contigs (half reverse-complemented, N
+    bases sprinkled), ragged lengths, half of them full."""
+    starts = rng.integers(0, contigs.shape[1] - L + 1, size=R)
+    rows = rng.integers(0, contigs.shape[0], size=R)
+    c = contigs.cpu().numpy()
+    bases = np.stack([c[r, s:s + L] for r, s in zip(rows, starts)])
+    flip = rng.random(R) < 0.5
+    bases[flip] = (3 - bases[flip])[:, ::-1]
+    bases[rng.random((R, L)) < n_frac] = 4
+    lengths = rng.integers(0, L + 1, size=R).astype(np.int32)
+    lengths[: R // 2] = L
+    return (torch.from_numpy(np.ascontiguousarray(bases)).to(dev),
+            torch.from_numpy(lengths).to(dev))
+
+
+def _stride(L, seed_len, stride=16):
+    """alignment._seed_positions: every stride columns, then the last."""
+    pos = list(range(0, L - seed_len + 1, stride))
+    return tuple(pos) + ((L - seed_len,) if pos[-1] != L - seed_len else ())
+
+
+# name -> (seed_len, capacity, R, L, reads, positions or None for the
+# path's stride-16 seeds)
+SEED_PROBE_CASES = {
+    "S1": (21, 1 << 12, 300, 150, "sampled", (40,)),
+    "S32": (17, 1 << 12, 300, 150, "sampled", tuple(range(0, 128, 4))),
+    "path_k21": (21, 1 << 12, 32768, 150, "sampled", None),
+    "path_k27": (27, 1 << 12, 32768, 150, "sampled", None),
+    "ragged_R": (21, 1 << 12, 1005, 150, "sampled", None),
+    "all_miss": (21, 1 << 12, 500, 150, "random", None),
+    "cap16": (21, 16, 500, 150, "sampled", None),
+    "misaligned": (21, 1 << 12, 77, 91, "offset", None),
+    "long_L": (21, 1 << 12, 5, 60000, "long", (0, 30000, 59979)),
+}
+
+
+@pytest.mark.parametrize("case", list(SEED_PROBE_CASES))
+def test_seed_probe_kernel_cases_equal_plain(dev, case):
+    """S = 1 and 32, the path's L = 150 and S (k 21: 10 seeds, k 27: 9),
+    R not a multiple of a block's reads, reads that miss every seed, the
+    capacity-16 table's long probe chains, rows that do not start on a
+    16-byte boundary, and reads too long for a warp's rows to fit the
+    default shared memory."""
+    seed_len, capacity, R, L, kind, positions = SEED_PROBE_CASES[case]
+    rng = np.random.default_rng(len(case) * 1000 + R)
+    contigs, index = _seed_index(rng, dev, capacity, seed_len, clen=400)
+    if kind == "sampled":
+        bases, lengths = _sampled_reads(rng, contigs, R, L, dev)
+    elif kind == "offset":  # a contiguous view one row into its buffer
+        bases, lengths = _sampled_reads(rng, contigs, R + 1, L, dev)
+        bases, lengths = bases[1:], lengths[1:]
+        assert bases.data_ptr() % 16 and bases.is_contiguous()
+    else:
+        bases, lengths = _reads(rng, R, L, dev)
+        if kind == "long":  # one stretch of a contig under the middle seed
+            bases[:, 30000:30100] = contigs[0, 100:200]
+            lengths[:] = L
+    positions = positions or _stride(L, seed_len)
+    t = index.table
+    args = (bases, lengths, *t, index.contig, index.pos, index.flip,
+            index.multi)
+    ops.reset_launches()
+    got = ops.seed_probe(*args, seed_len=seed_len, positions=positions)
+    assert ops.LAUNCHES["seed_probe"] == 1
+    _same(got, ops.seed_probe(*args, seed_len=seed_len, positions=positions,
+                              backend="torch"))
+    placed = int((got[0][:, 0] >= 0).sum())
+    if kind == "random":
+        assert placed == 0
+    elif kind in ("sampled", "offset", "long"):
+        assert placed > 0
+
+
+def test_seed_probe_kernel_refuses_33_seeds(dev):
+    rng = np.random.default_rng(3)
+    contigs, index = _seed_index(rng, dev, 1 << 12, 17)
+    bases, lengths = _reads(rng, 4, 150, dev)
+    with pytest.raises(ValueError, match="seeds"):
+        ops.seed_probe(bases, lengths, *index.table, index.contig,
+                       index.pos, index.flip, index.multi, seed_len=17,
+                       positions=tuple(range(0, 132, 4)))
+
+
 def test_contig_rounds_on_card_equals_cpu(dev):
     plan = AssemblyPlan(
         k_min=17, k_max=21, k_step=4, kmer_capacity=1 << 14, contig_cap=256,
@@ -401,6 +485,61 @@ def test_sw_extend_kernel_refuses_a_wide_band(dev):
     n = torch.full((2,), 8, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="band"):
         ops.sw_extend(z, z, n, n, band=16)
+
+
+def _sw_case(rng, case, dev):
+    """(query, target, qlen, tlen, band) of one card case."""
+    if case == "wide_weights":  # scores past the kernel's 32 x score keys
+        return (*_sw_inputs(rng, 3000, 150, 150, dev, True), 15)
+    if case == "path3":  # path 3's call: reads against contig windows
+        q, t, _, _ = _sw_inputs(rng, 32768, 150, 150, dev, True)
+        none = torch.from_numpy(rng.random(32768) < 0.3).to(dev)
+        qlen = torch.where(none, 0, 150).to(torch.int32)
+        short = torch.from_numpy(rng.random(32768) < 0.1).to(dev)
+        qlen = torch.where(short & ~none, 120, qlen).to(torch.int32)
+        return q, t, qlen, torch.where(none, 0, 150).to(torch.int32), 15
+    if case == "all_qlen0":
+        q, t, _, tlen = _sw_inputs(rng, 1000, 150, 150, dev, True)
+        return q, t, torch.zeros_like(tlen), tlen, 15
+    if case == "ties":  # short pairs over two bases: ties in and across rows
+        B, n = 4096, 24
+        q, t = (rng.integers(0, 2, size=(B, n)).astype(np.uint8)
+                for _ in range(2))
+        full = np.full(B, n, np.int32)
+        return (*(torch.from_numpy(x).to(dev) for x in (q, t, full, full)),
+                15)
+    if case == "ragged_B":
+        return (*_sw_inputs(rng, 4097, 150, 150, dev, True), 15)
+    if case == "misaligned":  # contiguous views one row into their buffers
+        q, t, qlen, tlen = _sw_inputs(rng, 78, 33, 47, dev, True)
+        q, t, qlen, tlen = q[1:], t[1:], qlen[1:], tlen[1:]
+        assert q.data_ptr() % 16 and t.data_ptr() % 16
+        return q, t, qlen, tlen, 3
+    assert case == "long_rows"  # 16 pairs a block, over 48 KB of rows
+    return (*_sw_inputs(rng, 40, 6000, 6000, dev, True), 15)
+
+
+@pytest.mark.parametrize("case", ["path3", "all_qlen0", "ties", "ragged_B",
+                                  "misaligned", "long_rows", "wide_weights"])
+def test_sw_extend_kernel_cases_equal_plain(dev, case):
+    """Path 3's shape (32768 x 150 x 150, band 15, a third of the pairs
+    without a candidate), a batch with qlen = 0 everywhere, short pairs
+    over two bases whose best score ties in and across rows, B not a
+    multiple of a block's pairs, rows that do not start on a 16-byte
+    boundary, rows too long for 32 pairs a block, and weights whose
+    scores pass the kernel's keyed row maximum (its cell-by-cell chain)."""
+    rng = np.random.default_rng(len(case))
+    q, t, qlen, tlen, band = _sw_case(rng, case, dev)
+    w = 1 << 19 if case == "wide_weights" else 1
+    kw = dict(band=band, match=w, mismatch=-w, gap=-w)
+    ops.reset_launches()
+    got = ops.sw_extend(q, t, qlen, tlen, **kw)
+    assert ops.LAUNCHES["sw_extend"] == 1
+    _same(got, ops.sw_extend(q, t, qlen, tlen, **kw, backend="torch"))
+    if case == "all_qlen0":
+        assert not any(g.any() for g in got)
+    else:
+        assert int(got[0].max()) > 0
 
 
 def test_assemble_stream_on_card_equals_cpu(dev):
