@@ -13,10 +13,12 @@ round's traversal fits the contig_cap of 4096 that the reference's
 Steps:
 
   1. card name and power limit (nvidia-smi);
-  2. build the eight CUDA kernels' libraries from
-     src/repro_torch/kernels/csrc (one nvcc each, in parallel); every
+  2. build the eight CUDA kernels' libraries, and the latency probe's,
+     from src/repro_torch/kernels/csrc (one nvcc each, in parallel); every
      kernel's registers, stack frame and spills (-Xptxas -v; it fails if
-     sw_extend or seed_probe spills), and the flash_attention and
+     sw_extend or seed_probe spills, or if the dht_lookup, mer_walk or
+     latency probe kernels spill or keep a stack frame), and the
+     flash_attention and
      ssd_scan kernels' tensor-core instructions in the built SASS
      (cuobjdump -sass: HGMMA in the bf16 flash kernel, HMMA in the fp32
      flash kernel and ssd_scan; it fails without them);
@@ -95,7 +97,18 @@ kernel count (the profiler's kernels summed by the library each op
 builds), and every dht_insert row its rounds (all in one cooperative
 launch) and the keys still pending after round 1; its bytes
 bound counts the key lanes of the valid rows only, with the bound that
-counts every row's key lanes beside it in the log.
+counts every row's key lanes beside it in the log.  A dht_lookup row
+carries its rows, valid rows and slots examined, and its bytes bound
+counts what those need (5 n + 8 n_valid + 9 slots + 4; the count every
+row's key lanes gave, 13 n + 9 n_valid + 4, beside it in the log).  A
+mer_walk row carries its walkers, steps, rounds (the longest walk) and
+slots examined, and its bound is a latency bound: rounds times t_RT,
+one dependent round trip to device memory, which a one-thread pointer
+chase (csrc/latency_probe.cu) measures on its own log line over a buffer
+as large as the walk's tables; the bytes bound stays beside it
+(`bytes_bound_ms`).  Both rows carry `host_ms`, the op's host time a
+call (host clock around a warm call, the card idle before it, no
+synchronise), and `ms_passes`, the three passes whose median is `ms`.
 
 Any failure raises (non-zero exit, no result).  The line before the last
 is one JSON object with a record per kernel, path and call site (`path`
@@ -317,9 +330,54 @@ def walk_work(args, kw, ops) -> dict:
     return counts
 
 
+def round_trip_ns(nbytes, build) -> float:
+    """ns of one dependent round trip to device memory: one thread chases
+    a random cycle (csrc/latency_probe.cu) of 2^20 nodes spread over a
+    buffer of at least `nbytes`, three runs of 2^17 hops timed on the
+    device, each going on where the last stopped, so that no node is
+    visited twice (a second visit would find its line in the L2)."""
+    nodes, hops = 1 << 20, 1 << 17
+    stride = 1
+    while nodes * stride * 4 < nbytes:
+        stride *= 2
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    order = torch.randperm(nodes, generator=gen, device=dev)
+    at = order * stride  # node order[i] lives at word order[i] * stride
+    chase = torch.empty((nodes * stride,), dtype=torch.int32, device=dev)
+    chase[at] = torch.roll(at, -1).to(torch.int32)
+    last = torch.empty((1,), dtype=torch.int32, device=dev)
+    ns = torch.empty((1,), dtype=torch.int64, device=dev)
+    lib = build.library("latency_probe")
+    stream = torch.cuda.current_stream().cuda_stream
+    runs, start = [], int(at[0])
+    for _ in range(3):
+        err = lib.latency_probe_launch(chase.data_ptr(), start, hops,
+                                       last.data_ptr(), ns.data_ptr(),
+                                       stream)
+        if err != 0:
+            raise RuntimeError(f"latency_probe failed: "
+                               f"{lib.repro_error_string(err).decode()}")
+        torch.cuda.synchronize()
+        runs.append(int(ns) / hops)
+        start = int(last) & 0xFFFFFFFF  # a uint32 index
+    if start != int(at[3 * hops % nodes]):
+        raise AssertionError("latency_probe: the chase left its cycle")
+    t_rt = float(np.median(runs))
+    log(f"t_RT: {t_rt:.1f} ns a dependent round trip (median of 3 chases "
+        f"of {hops} hops over {nodes} nodes in {chase.numel() * 4} bytes; "
+        f"runs {', '.join(f'{r:.1f}' for r in runs)} ns)")
+    return t_rt
+
+
 def bound(name, args, kw, ops, row) -> tuple:
-    """(bound_ms, bound_by) of kernel `name`: the larger of bytes / HBM
-    rate and operations / scalar rate, for the work these inputs need."""
+    """(bound_ms, bound_by, fields) of kernel `name`: the larger of bytes
+    / HBM rate and operations / scalar rate, for the work these inputs
+    need (mer_walk: and its latency bound, the longest walk's steps times
+    one dependent round trip); `fields` holds the counts of that work for
+    the row's record."""
+    fields = {}
+    t_lat = 0.0
     if name == "kmer_extract":
         bases, lengths = args
         R, L = bases.shape
@@ -328,11 +386,18 @@ def bound(name, args, kw, ops, row) -> tuple:
         nbytes = R * L * (1 + 16) + 4 * R
         nops = R * W * (3 * k + 34)
     elif name == "dht_lookup":
-        valid = args[6] if len(args) > 6 else kw.get("valid")
-        n = args[4].numel()
-        n_valid = n if valid is None else int(valid.sum())
-        nbytes = 13 * n + 9 * n_valid + 4
-        nops = n_valid * 40
+        work = ops.ref.dht_lookup_work(*args)
+        nbytes = work["bytes"]
+        nops = work["valid"] * 40
+        fields = dict(rows=work["rows"], valid_rows=work["valid"],
+                      slots_examined=work["slots"])
+        every = work["bytes_every_row"]
+        log(f"  {row}: {work['rows']} rows, {work['valid']} valid, "
+            f"{work['slots']} slots examined: bytes bound 5 n + 8 n_valid "
+            f"+ 9 slots + 4 = {nbytes} "
+            f"({nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms); the count it "
+            f"replaces, 13 n + 9 n_valid + 4 = {every} "
+            f"({every / HBM_BYTES_PER_S * 1e3:.4f} ms)")
     elif name == "dht_insert":
         # valid read once, slots written once, the key lanes of the valid
         # rows only, the table read and the new table written
@@ -369,6 +434,7 @@ def bound(name, args, kw, ops, row) -> tuple:
         nbytes = B * (QL + TL + 4 + 4) + 3 * 4 * B
         nops = B * QL * (2 * band + 1) * 10
     else:  # mer_walk: per step one 16-byte histogram row, 9 B per slot
+        wt = args[0]
         E = args[1].numel()
         work = walk_work(args, kw, ops)
         target = 8 if kw.get("seed_len") else 0
@@ -376,40 +442,92 @@ def bound(name, args, kw, ops, row) -> tuple:
                   + 9 * work["probes"] + 16 * work["steps"]
                   + E * (kw["max_ext"] + 4 + 4 + 1 + 4))
         nops = 80 * work["steps"] + 8 * work["probes"]
-        log(f"  {row}: {E} walkers, {work['steps']} steps, "
-            f"{work['probes']} slots probed")
+        tables = sum(a.numel() * a.element_size() for t in wt.tables
+                     for a in t[:3])
+        tables += sum(h.numel() * h.element_size()
+                      for h in (*wt.right_hist, *wt.left_hist))
+        t_rt = round_trip_ns(tables, ops.build)
+        t_lat = work["rounds"] * t_rt * 1e-6
+        fields = dict(walkers=E, active=int(args[4].sum()),
+                      steps=work["steps"], rounds=work["rounds"],
+                      slots_examined=work["probes"], t_rt_ns=t_rt,
+                      bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+        log(f"  {row}: {E} walkers ({fields['active']} active), "
+            f"{work['steps']} steps, {work['rounds']} rounds (the longest "
+            f"walk), {work['probes']} slots probed; latency bound rounds x "
+            f"t_RT = {work['rounds']} x {t_rt:.1f} ns = {t_lat:.4f} ms, "
+            f"bytes bound {fields['bytes_bound_ms']:.4f} ms; tables "
+            f"{tables} bytes")
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / SCALAR_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    best = max((t_bytes, "bytes"), (t_ops, "operations"),
+               (t_lat, "latency"))
+    return (*best, fields)
+
+
+def host_ms(fn, reps=20) -> float:
+    """Median host time of a warm call of fn(), the card idle before each
+    and no synchronise inside: the wrapper's work before and around its
+    launch."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return float(np.median(times)) * 1e3
 
 
 def hold_against_plain(row, call, ops, launches, path):
     """The kernel against its plain version on one recorded call: equal
-    bit for bit, both timed; returns the row's JSON record."""
+    bit for bit, both timed; returns the row's JSON record.  dht_lookup
+    and mer_walk rows also carry the op's host time a call, and their
+    kernel time is the median of three passes, each a median of 20,
+    with the passes beside it (`ms_passes`): their calls are short, and
+    one pass can move by a tenth."""
     _, name, cargs, ckw = call
     source, replaces = KERNELS[name]
     fn = getattr(ops, name)
+    if name == "dht_lookup" and (len(cargs) < 7 or cargs[6] is None):
+        q = cargs[4]  # every query valid, as the op takes it
+        cargs = (*cargs[:6], torch.ones(q.shape, dtype=torch.bool,
+                                        device=q.device))
     got = fn(*cargs, **ckw)
     want = fn(*cargs, **ckw, backend="torch")
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
-    insert = {}
+    extra = {}
     if name == "dht_insert":  # the kernel's own counters
         c = ops.LAST_INSERT
-        insert = dict(valid_keys=c["valid"], rounds=c["rounds"],
-                      pending_after_round_1=c["pending_after_round_1"])
+        extra = dict(valid_keys=c["valid"], rounds=c["rounds"],
+                     pending_after_round_1=c["pending_after_round_1"])
     err = max_abs_err(got, want)
     if err != 0:
         raise AssertionError(f"{row}: kernel != plain version "
                              f"(max abs err {err})")
     del got, want
-    if insert:
-        log(f"  {row}: {insert['valid_keys']} valid keys, "
-            f"{insert['rounds']} rounds in one launch, "
-            f"{insert['pending_after_round_1']} keys pending after round 1")
-    ms = median_ms(lambda: fn(*cargs, **ckw))
+    if name == "dht_insert":
+        log(f"  {row}: {extra['valid_keys']} valid keys, "
+            f"{extra['rounds']} rounds in one launch, "
+            f"{extra['pending_after_round_1']} keys pending after round 1")
+    if name in ("dht_lookup", "mer_walk"):
+        extra["ms_passes"] = [median_ms(lambda: fn(*cargs, **ckw))
+                              for _ in range(3)]
+        ms = float(np.median(extra["ms_passes"]))
+    else:
+        ms = median_ms(lambda: fn(*cargs, **ckw))
     plain_ms = median_ms(lambda: fn(*cargs, **ckw, backend="torch"))
-    b_ms, b_by = bound(name, cargs, ckw, ops, row)
+    b_ms, b_by, fields = bound(name, cargs, ckw, ops, row)
+    extra.update(fields)
+    if name in ("dht_lookup", "mer_walk"):
+        extra["host_ms"] = host_ms(lambda: fn(*cargs, **ckw))
+        note = (f"; host {extra['host_ms']:.4f} ms a call; kernel ms in "
+                f"3 passes " + ", ".join(f"{t:.4f}"
+                                         for t in extra["ms_passes"]))
+        log(f"  {row}: {b_ms / ms:.3f} of the bound ({ms / b_ms:.2f}x)"
+            + note)
     shapes = [tuple(a.shape) for a in cargs if torch.is_tensor(a)]
     log(f"{row}: equal to plain (tolerance 0), inputs {shapes}: "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
@@ -417,7 +535,7 @@ def hold_against_plain(row, call, ops, launches, path):
     return dict(
         name=row, route="cuda", source=source, replaces=replaces,
         launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, path=path, **insert)
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, path=path, **extra)
 
 
 def n50(lengths) -> int:
@@ -540,6 +658,8 @@ def kernel_ops(build) -> dict:
             if not m:
                 continue
             op = lib
+            if lib == "latency_probe":  # measures; no op of the port
+                continue
             if lib == "dht_probe":
                 op = "dht_lookup" if "lookup" in m.group(1) else "dht_insert"
             names[m.group(1)] = op
@@ -1203,12 +1323,27 @@ def tensor_core_report(build):
             f"{rep.get('stack_frame', 0)} bytes stack frame, "
             f"{rep.get('spill_stores', 0)} bytes spill stores, "
             f"{rep.get('spill_loads', 0)} bytes spill loads")
-    # the alignment kernels keep a read's seeds and a DP row in registers
-    spilled = {short(fn): rep for fn, rep in ptxas.items()
-               if re.search(r"\b(sw_extend|seed_probe)_kernel", fn)
-               and (rep.get("spill_stores") or rep.get("spill_loads"))}
+    # the alignment kernels keep a read's seeds and a DP row in registers;
+    # the lookup, walk and chase kernels hold their probes in registers.
+    # Each must be in the report: a name is matched where no letter comes
+    # before it, so a mangled one (`_ZN..13lookup_kernel..`) counts too.
+    def named(kernel):
+        return [fn for fn in ptxas
+                if re.search(rf"(?<![A-Za-z_]){kernel}_kernel", fn)]
+
+    checked = {k: named(k) for k in ("sw_extend", "seed_probe", "lookup",
+                                     "mer_walk", "chase")}
+    missing = [k for k, fns in checked.items() if not fns]
+    if missing:
+        raise AssertionError(f"no ptxas report for the kernels {missing}")
+    spilled = {short(fn): ptxas[fn] for k, fns in checked.items()
+               for fn in fns
+               if ptxas[fn].get("spill_stores") or ptxas[fn].get("spill_loads")
+               or (k not in ("sw_extend", "seed_probe")
+                   and ptxas[fn].get("stack_frame"))}
     if spilled:
-        raise AssertionError(f"alignment kernels spill: {spilled}")
+        raise AssertionError(f"kernels spill or keep a stack frame: "
+                             f"{spilled}")
     for lib in ("flash_attention", "ssd_scan"):
         counts = build.sass_counts(lib)
         if counts is None:

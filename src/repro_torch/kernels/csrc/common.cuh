@@ -70,6 +70,61 @@ __device__ __forceinline__ int32_t probe(const uint32_t* __restrict__ slot_hi,
   return -1;
 }
 
+// One probe step in one round trip: used[a], slot_hi[a] and slot_lo[a] are
+// loaded together and only then compared, where `probe` reads the key
+// lanes after `used` has come back.  Reading the key lanes of an unused
+// slot is in bounds and changes nothing (an empty slot holds EMPTY_HI,
+// which no key has).  The loads are one volatile asm statement, so they
+// issue before any compare: written as `__ldg` loads, ptxas put the
+// compares of used and slot_hi before the load of the walk's histogram
+// row (mer_walk_kernel<true>), which then waited for their round trip
+// (kernels/probe_variants.py, variant `ldg`).
+enum SlotState { kSlotNext = 0, kSlotKey = 1, kSlotEmpty = 2 };
+
+__device__ __forceinline__ int slot_match(uint32_t u, uint32_t h, uint32_t l,
+                                          uint32_t khi, uint32_t klo) {
+  const bool key = (u != 0) & (h == khi) & (l == klo);
+  return key ? kSlotKey : (u != 0 ? kSlotNext : kSlotEmpty);
+}
+
+// used[a], slot_hi[a] and slot_lo[a], for slot_match.
+__device__ __forceinline__ uint3 slot_load(const uint32_t* __restrict__ slot_hi,
+                                           const uint32_t* __restrict__ slot_lo,
+                                           const uint8_t* __restrict__ used,
+                                           uint32_t a) {
+  unsigned short u;
+  uint32_t h, l;
+  asm volatile(
+      "ld.global.nc.u8 %0, [%3];\n\t"
+      "ld.global.nc.u32 %1, [%4];\n\t"
+      "ld.global.nc.u32 %2, [%5];"
+      : "=h"(u), "=r"(h), "=r"(l)
+      : "l"(used + a), "l"(slot_hi + a), "l"(slot_lo + a));
+  return make_uint3(u, h, l);
+}
+
+// slot_match of slot a, with the 16-byte row rows[a] of a side array
+// loaded beside the slot (*row; the caller keeps it where the slot holds
+// the key).
+__device__ __forceinline__ int slot_state_row(
+    const uint32_t* __restrict__ slot_hi, const uint32_t* __restrict__ slot_lo,
+    const uint8_t* __restrict__ used, const int4* __restrict__ rows,
+    uint32_t a, uint32_t khi, uint32_t klo, int4* row) {
+  unsigned short u;
+  uint32_t h, l;
+  int4 v;
+  asm volatile(
+      "ld.global.nc.u8 %0, [%7];\n\t"
+      "ld.global.nc.u32 %1, [%8];\n\t"
+      "ld.global.nc.u32 %2, [%9];\n\t"
+      "ld.global.nc.v4.s32 {%3, %4, %5, %6}, [%10];"
+      : "=h"(u), "=r"(h), "=r"(l), "=r"(v.x), "=r"(v.y), "=r"(v.z),
+        "=r"(v.w)
+      : "l"(used + a), "l"(slot_hi + a), "l"(slot_lo + a), "l"(rows + a));
+  *row = v;
+  return slot_match(u, h, l, khi, klo);
+}
+
 }  // namespace repro
 
 extern "C" const char* repro_error_string(int err) {

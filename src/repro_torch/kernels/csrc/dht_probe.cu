@@ -4,10 +4,25 @@
 // `_lookup_kernel`) and :dht_insert (body `_insert_kernel`), whose jnp
 // oracles are repro/core/dht.py:lookup_jnp and :insert_jnp.
 //
-// dht_lookup: one thread per query walks the linear-probe chain from
-// hash & (cap-1) in global memory (the table stays L2-resident at moderate
-// capacity).  Bound: memory latency of the dependent probe loads; the bytes
-// are ~9 per probe step plus 13 per query.
+// dht_lookup: bound on the H100 by bytes, `valid` read and the slots
+// written for every row (5 bytes a row), the key lanes of the valid rows
+// only and 9 bytes a slot examined; on the assembly paths a call has 2^21
+// to 2^23 rows, a tenth or less of them valid, and the table (9 bytes a
+// slot, 2^21 to 2^23 slots) does not stay in the 50 MB L2.  The design:
+//   * a warp streams a tile of 512 rows: one 16-byte load of `valid` a
+//     lane, the tile's valid rows compacted into a list in shared memory
+//     (a warp scan of the lanes' counts), and the tile's slots stored as
+//     16-byte runs, lane after lane, -1 where a row is invalid or absent;
+//     a ragged end or an unaligned pointer takes a scalar edge path;
+//   * lanes take the valid rows round-robin, kInFlight at once, and issue
+//     every row's key lanes, then every row's slot loads, before any
+//     compare; a probe step loads used, slot_hi and slot_lo together
+//     (repro::slot_load), one round trip where repro::probe takes two;
+//   * max_probe is read once a block.
+// Against one thread a query with the same fused step
+// (kernels/probe_variants.py, variant `thread`) it wins on the sparse
+// calls and on paths 1-2's dense ones, and loses on path 3's dense ones
+// (2^21 rows, 42% valid).
 //
 // dht_insert: bulk-synchronous claim rounds.  The race is global, so keys
 // cannot be tiled inside a block: which key wins a slot decides where later
@@ -88,23 +103,128 @@ enum Counter {
   kCounters
 };
 
-__global__ void lookup_kernel(const uint32_t* __restrict__ slot_hi,
-                              const uint32_t* __restrict__ slot_lo,
-                              const uint8_t* __restrict__ used,
-                              const int32_t* __restrict__ max_probe,
-                              uint32_t cap_mask,
-                              const uint32_t* __restrict__ qhi,
-                              const uint32_t* __restrict__ qlo,
-                              const uint8_t* __restrict__ qvalid, long long n,
-                              int32_t* __restrict__ out) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  int32_t result = -1;
-  if (qvalid[i]) {
-    result = repro::probe(slot_hi, slot_lo, used, cap_mask, *max_probe + 1,
-                          qhi[i], qlo[i]);
+// dht_lookup: a warp streams a tile of 512 rows (16 a lane), then probes
+// the tile's valid rows only, several in flight a lane.
+constexpr int kLookupThreads = 256;
+constexpr int kLookupWarps = kLookupThreads / 32;
+constexpr int kTileRows = 32 * 16;
+constexpr int kInFlight = 4;  // valid rows a lane probes at once
+
+// Bit b of the result: byte b of the 16 is nonzero.
+__device__ __forceinline__ uint32_t nonzero_bytes(uint4 w) {
+  uint32_t m = 0;
+  const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const uint32_t x = __vcmpne4(words[q], 0u) & 0x80808080u;
+    m |= ((x >> 7 | x >> 14 | x >> 21 | x >> 28) & 0xFu) << (4 * q);
   }
-  out[i] = result;
+  return m;
+}
+
+__global__ void __launch_bounds__(kLookupThreads)
+    lookup_kernel(const uint32_t* __restrict__ slot_hi,
+                  const uint32_t* __restrict__ slot_lo,
+                  const uint8_t* __restrict__ used,
+                  const int32_t* __restrict__ max_probe, uint32_t cap_mask,
+                  const uint32_t* __restrict__ qhi,
+                  const uint32_t* __restrict__ qlo,
+                  const uint8_t* __restrict__ qvalid, long long n,
+                  int32_t* __restrict__ out) {
+  __shared__ uint16_t s_rows[kLookupWarps][kTileRows];  // valid rows
+  __shared__ int4 s_out[kLookupWarps][kTileRows / 4];   // the tile's slots
+  __shared__ int32_t s_bound;
+  if (threadIdx.x == 0) s_bound = __ldg(max_probe) + 1;
+  __syncthreads();
+  const int32_t bound = s_bound;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool vin = ((uintptr_t)qvalid & 15) == 0;
+  const bool vout = ((uintptr_t)out & 15) == 0;
+  uint16_t* rows = s_rows[warp];
+  int4* res4 = s_out[warp];
+  int32_t* res = (int32_t*)res4;
+  const long long tiles = (n + kTileRows - 1) / kTileRows;
+  for (long long t = (long long)blockIdx.x * kLookupWarps + warp; t < tiles;
+       t += (long long)gridDim.x * kLookupWarps) {
+    const long long t0 = t * kTileRows;
+    // 1. the valid bytes of this lane's 16 rows, one 16-byte load
+    const long long r0 = t0 + 16 * lane;
+    uint32_t bits = 0;
+    if (vin && r0 + 16 <= n) {
+      bits = nonzero_bytes(__ldcs((const uint4*)(qvalid + r0)));
+    } else {
+      for (int b = 0; b < 16 && r0 + b < n; ++b)
+        bits |= (uint32_t)(qvalid[r0 + b] != 0) << b;
+    }
+    // 2. the tile's valid rows in a list, lane after lane; every slot -1
+    const int cnt = __popc(bits);
+    int incl = cnt;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += y;
+    }
+    const int total = __shfl_sync(0xffffffffu, incl, 31);
+    int pos = incl - cnt;
+    for (uint32_t b = bits; b; b &= b - 1)
+      rows[pos++] = (uint16_t)(16 * lane + __ffs(b) - 1);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) res4[32 * q + lane] = make_int4(-1, -1, -1, -1);
+    __syncwarp();
+    // 3. lanes take the valid rows round-robin, kInFlight at once: every
+    // row's key lanes, then every row's slot loads, before any compare
+    for (int j0 = 0; j0 < total; j0 += 32 * kInFlight) {
+      int row[kInFlight];
+      bool live[kInFlight];
+      uint32_t khi[kInFlight], klo[kInFlight], a[kInFlight];
+#pragma unroll
+      for (int k = 0; k < kInFlight; ++k) {
+        const int j = j0 + 32 * k + lane;
+        live[k] = j < total;
+        row[k] = live[k] ? rows[j] : 0;
+      }
+#pragma unroll
+      for (int k = 0; k < kInFlight; ++k) {
+        khi[k] = live[k] ? __ldg(qhi + t0 + row[k]) : 0u;
+        klo[k] = live[k] ? __ldg(qlo + t0 + row[k]) : 0u;
+      }
+#pragma unroll
+      for (int k = 0; k < kInFlight; ++k)
+        a[k] = repro::kmer_hash(khi[k], klo[k]) & cap_mask;
+      for (int32_t step = 0; step <= bound; ++step) {
+        uint3 v[kInFlight];
+#pragma unroll
+        for (int k = 0; k < kInFlight; ++k)
+          v[k] = live[k] ? repro::slot_load(slot_hi, slot_lo, used, a[k])
+                         : make_uint3(0u, 0u, 0u);
+        bool more = false;
+#pragma unroll
+        for (int k = 0; k < kInFlight; ++k) {
+          if (!live[k]) continue;
+          const int s = repro::slot_match(v[k].x, v[k].y, v[k].z, khi[k],
+                                          klo[k]);
+          if (s == repro::kSlotKey) res[row[k]] = (int32_t)a[k];
+          live[k] = s == repro::kSlotNext;
+          a[k] = (a[k] + 1) & cap_mask;
+          more |= live[k];
+        }
+        if (!more) break;
+      }
+    }
+    __syncwarp();
+    // 4. the tile's slots, 16 bytes a lane, lane after lane
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int r = 4 * (32 * q + lane);
+      if (vout && t0 + r + 4 <= n) {
+        __stcs((int4*)(out + t0 + r), res4[32 * q + lane]);
+      } else {
+        for (int b = 0; b < 4 && t0 + r + b < n; ++b)
+          out[t0 + r + b] = res[r + b];
+      }
+    }
+    __syncwarp();  // rows and res are reused by the next tile
+  }
 }
 
 // Valid rows of the batch: four 16-byte loads a thread in flight, lane
@@ -475,19 +595,19 @@ __global__ void __launch_bounds__(kInsertThreads, 3)
   }
 }
 
-inline unsigned blocks_for(long long n) {
-  return (unsigned)((n + kThreads - 1) / kThreads);
-}
-
 }  // namespace
 
+// max_probe [1] on the device.
 extern "C" int dht_lookup_launch(const void* slot_hi, const void* slot_lo,
                                  const void* used, const void* max_probe,
                                  long long cap, const void* qhi,
                                  const void* qlo, const void* qvalid,
                                  long long n, void* out, void* stream) {
   if (n == 0) return 0;
-  lookup_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+  const long long tiles = (n + kTileRows - 1) / kTileRows;
+  const long long blocks = (tiles + kLookupWarps - 1) / kLookupWarps;
+  lookup_kernel<<<(unsigned)blocks, kLookupThreads, 0,
+                  (cudaStream_t)stream>>>(
       (const uint32_t*)slot_hi, (const uint32_t*)slot_lo,
       (const uint8_t*)used, (const int32_t*)max_probe, (uint32_t)(cap - 1),
       (const uint32_t*)qhi, (const uint32_t*)qlo, (const uint8_t*)qvalid, n,

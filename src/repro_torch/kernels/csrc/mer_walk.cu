@@ -12,17 +12,33 @@
 // (seed_len > 0) a walker whose buffer suffix becomes the target seed
 // after an accepted base stops with status HIT at hit_pos = bases so far.
 //
-// Bound on the H100: memory latency.  Each step is a dependent chain of
-// hash probes (9 bytes a slot) and one 16-byte histogram row, in tables
-// of up to a few GB that do not fit in L2; the arithmetic per step (a
-// 64-bit reversal, two fmix32, the vote) is small.
-// Design: one thread per walker, the whole walk in registers: the 31-base
-// rolling suffix buffer is one uint64_t (62 bits), rung, last shift,
-// status, length and hit are scalars.  Unlike the TPU kernel, which probes
-// every rung each step and keeps the current rung's result, only the
-// current rung is probed: probes have no side effects, so the outputs are
-// the same for a third of the traffic.  A walker leaves the loop when it
-// stops; the reference's remaining fixed-count steps are no-ops for it.
+// Bound on the H100: memory latency.  Each step needs the histogram row
+// of the mer the previous step's vote made, so a walker's steps are a
+// chain of dependent round trips to tables of up to a few GB that do not
+// fit in L2; the least time is the longest walker's steps times one
+// dependent DRAM round trip (chip_smoke.py measures that round trip with
+// csrc/latency_probe.cu).  The arithmetic per step (a 64-bit reversal,
+// two fmix32, the vote) is small.  The design makes a step one round trip:
+//   * `flip` is known from the canonical form before the probe, so a probe
+//     step loads used, slot_hi and slot_lo and the histogram row the flip
+//     selects (right[a] or left[a]) in one statement
+//     (repro::slot_state_row), and keeps the row when the slot holds the
+//     key: a key at its home slot costs one round trip, each slot further
+//     on one more, and those usually hit the sectors the first brought in;
+//   * each rung's max_probe + 1 is read once a block, into shared memory
+//     with the rung's pointers and mask, before the step loop;
+//   * the kernel writes every byte of its output row, the accepted bases
+//     and then pad 4 (16-byte stores where aligned), so the caller
+//     allocates it uninitialised.
+// One thread per walker (kWalkersPerWarp of a warp's lanes), the whole
+// walk in registers: the 31-base rolling suffix buffer is one uint64_t
+// (62 bits) with its reverse complement rolled beside it, so a rung's
+// canonical mer is a mask, a shift and a compare; rung, last shift,
+// status, length and hit are scalars.  Unlike the TPU kernel, which
+// probes every rung each step and keeps the current rung's result, only
+// the current rung is probed: probes have no side effects, so the outputs
+// are the same for a third of the traffic.  A walker leaves the loop when
+// it stops; the reference's remaining fixed-count steps are no-ops for it.
 // Each rung's table arrays come as their own pointers in a small struct
 // passed by value (no stacked copy of multi-GB tables).
 #include "common.cuh"
@@ -30,11 +46,16 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+// Lanes of a warp that walk; the others leave at once.  Eight a warp beat
+// 32 and 4 on the assembly paths' walks: a warp's step waits for its
+// slowest walker's loads, fewer walkers a warp wait for fewer chains.
+constexpr int kWalkersPerWarp = 8;
 constexpr int kMaxRungs = 3;
 constexpr int kBufK = 31;
 constexpr int32_t kActive = 0, kDeadend = 1, kFork = 2, kDone = 3, kHit = 4;
 
-struct Rung {
+struct Rung {  // as the host passes it
   const uint32_t* slot_hi;
   const uint32_t* slot_lo;
   const uint8_t* used;
@@ -49,58 +70,103 @@ struct Ladder {
   int n;
 };
 
+struct RungState {  // a block's copy, in shared memory
+  const uint32_t* slot_hi;
+  const uint32_t* slot_lo;
+  const uint8_t* used;
+  const int4* right;
+  const int4* left;
+  uint64_t mask;  // code_mask(m)
+  int m;
+  int rc_shift;   // 2 (31 - m): the mer's reverse complement in rcbuf
+  int32_t bound;  // max_probe + 1: a probe takes at most bound + 1 steps
+};
+
+// row[from, to) = 4 (pad), 16 bytes a store where the row is aligned.
+__device__ __forceinline__ void fill_pad(uint8_t* row, int from, int to) {
+  int j = from;
+  for (; j < to && ((uintptr_t)(row + j) & 15); ++j) row[j] = 4;
+  const uint4 pad = make_uint4(0x04040404u, 0x04040404u, 0x04040404u,
+                               0x04040404u);
+  for (; j + 16 <= to; j += 16) *(uint4*)(row + j) = pad;
+  for (; j < to; ++j) row[j] = 4;
+}
+
 template <bool kTarget>
-__global__ void mer_walk_kernel(const uint32_t* __restrict__ start_hi,
-                                const uint32_t* __restrict__ start_lo,
-                                const int32_t* __restrict__ contig,
-                                const uint8_t* __restrict__ active,
-                                const uint32_t* __restrict__ target_hi,
-                                const uint32_t* __restrict__ target_lo,
-                                long long E, const Ladder ladder,
-                                uint32_t cap_mask, int tag_bits, int max_ext,
-                                int min_votes, int dominance, int seed_len,
-                                uint8_t* __restrict__ out_bases,
-                                int32_t* __restrict__ out_len,
-                                int32_t* __restrict__ out_status,
-                                uint8_t* __restrict__ out_hit,
-                                int32_t* __restrict__ out_hit_pos) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= E) return;
+__global__ void __launch_bounds__(kThreads)
+    mer_walk_kernel(const uint32_t* __restrict__ start_hi,
+                    const uint32_t* __restrict__ start_lo,
+                    const int32_t* __restrict__ contig,
+                    const uint8_t* __restrict__ active,
+                    const uint32_t* __restrict__ target_hi,
+                    const uint32_t* __restrict__ target_lo, long long E,
+                    const Ladder ladder, uint32_t cap_mask, int tag_bits,
+                    int max_ext, int min_votes, int dominance, int seed_len,
+                    uint8_t* __restrict__ out_bases,
+                    int32_t* __restrict__ out_len,
+                    int32_t* __restrict__ out_status,
+                    uint8_t* __restrict__ out_hit,
+                    int32_t* __restrict__ out_hit_pos) {
+  __shared__ RungState s_rung[kMaxRungs];
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int r = 0; r < kMaxRungs; ++r) {
+      if (r >= ladder.n) break;
+      const Rung& g = ladder.rung[r];
+      s_rung[r] = RungState{g.slot_hi, g.slot_lo, g.used, g.right, g.left,
+                            repro::code_mask(g.m), g.m, 2 * (kBufK - g.m),
+                            __ldg(g.max_probe) + 1};
+    }
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const long long i =
+      ((long long)blockIdx.x * kWarps + (threadIdx.x >> 5)) * kWalkersPerWarp +
+      lane;
+  if (lane >= kWalkersPerWarp || i >= E) return;
   int32_t status = active[i] ? kActive : kDone;
   int32_t len = 0;
   bool hit = false;
   int32_t hit_pos = -1;
+  uint8_t* row = out_bases + i * (long long)max_ext;
   if (status == kActive) {
     uint64_t buf = ((uint64_t)start_hi[i] << 32) | start_lo[i];
+    // the buffer's reverse complement, rolled beside it: a rung's mer and
+    // its reverse complement are a mask and a shift away
+    uint64_t rcbuf = repro::reverse_complement(buf, kBufK);
     const uint64_t tag =
         (uint64_t)((uint32_t)contig[i] & ((1u << tag_bits) - 1u));
     const uint64_t target =
         kTarget ? (((uint64_t)target_hi[i] << 32) | target_lo[i]) : 0ull;
     const uint64_t seed_mask = kTarget ? repro::code_mask(seed_len) : 0ull;
-    uint8_t* row = out_bases + i * (long long)max_ext;
     const int n = ladder.n;
     int rung = n / 2;
     int last_shift = 0;
     for (int step = 0; step < max_ext; ++step) {
-      const Rung& r = ladder.rung[rung];
-      bool flip;
-      const uint64_t canon =
-          repro::canonical(buf & repro::code_mask(r.m), r.m, &flip);
+      const RungState& r = s_rung[rung];
+      const uint64_t fwd = buf & r.mask;
+      const uint64_t rc = rcbuf >> r.rc_shift;
+      const bool flip = rc < fwd;  // repro::canonical, from the rolled rc
+      const uint64_t canon = flip ? rc : fwd;
       const uint64_t key = canon | (tag << (2 * r.m));
-      const int32_t slot =
-          repro::probe(r.slot_hi, r.slot_lo, r.used, cap_mask,
-                       *r.max_probe + 1, (uint32_t)(key >> 32),
-                       (uint32_t)key);
-      int h[4] = {0, 0, 0, 0};
-      if (slot >= 0) {
-        if (flip) {  // walk frame of an RC mer: the left counts, reversed
-          const int4 v = r.left[slot];
-          h[0] = v.w; h[1] = v.z; h[2] = v.y; h[3] = v.x;
-        } else {
-          const int4 v = r.right[slot];
-          h[0] = v.x; h[1] = v.y; h[2] = v.z; h[3] = v.w;
-        }
+      const uint32_t khi = (uint32_t)(key >> 32), klo = (uint32_t)key;
+      // the probe, the histogram row the flip selects loaded with each
+      // slot's key lanes; kept where the slot holds the key
+      const int4* hist = flip ? r.left : r.right;
+      const int32_t bound = r.bound;
+      uint32_t a = repro::kmer_hash(khi, klo) & cap_mask;
+      int4 v = make_int4(0, 0, 0, 0);
+      for (int32_t p = 0; p <= bound; ++p) {
+        int4 h4;
+        const int s = repro::slot_state_row(r.slot_hi, r.slot_lo, r.used,
+                                            hist, a, khi, klo, &h4);
+        v = s == repro::kSlotKey ? h4 : v;
+        if (s != repro::kSlotNext) break;
+        a = (a + 1) & cap_mask;
       }
+      // walk frame of an RC mer: the left counts, reversed
+      const int h[4] = {flip ? v.w : v.x, flip ? v.z : v.y,
+                        flip ? v.y : v.z, flip ? v.x : v.w};
       // the vote: first maximal base, uncontested or dominant
       int c1 = h[0], best = 0, viable = 0;
       long long total = 0;
@@ -118,6 +184,7 @@ __global__ void mer_walk_kernel(const uint32_t* __restrict__ start_hi,
            c1 >= min_votes + 1);
       if (accept) {
         buf = ((buf << 2) | (uint64_t)best) & repro::code_mask(kBufK);
+        rcbuf = (rcbuf >> 2) | ((uint64_t)(3 - best) << (2 * kBufK - 2));
         row[len++] = (uint8_t)best;
         last_shift = 0;
         if (kTarget && (buf & seed_mask) == target) {
@@ -137,6 +204,7 @@ __global__ void mer_walk_kernel(const uint32_t* __restrict__ start_hi,
       }
     }
   }
+  fill_pad(row, len, max_ext);
   out_len[i] = len;
   out_status[i] = status;
   out_hit[i] = hit;
@@ -147,8 +215,8 @@ __global__ void mer_walk_kernel(const uint32_t* __restrict__ start_hi,
 
 // rung_ptrs: host array of 6 pointers per rung (slot_hi, slot_lo, used,
 // max_probe, right_hist, left_hist); mer_sizes: host array of n_rungs.
-// out_bases must hold 4 (pad) everywhere on entry; the kernel writes only
-// the accepted bases.
+// The kernel writes every byte of out_bases [E, max_ext]; target_hi/lo are
+// read only when seed_len > 0 (null otherwise).
 extern "C" int mer_walk_launch(const void* start_hi, const void* start_lo,
                                const void* contig, const void* active,
                                const void* target_hi, const void* target_lo,
@@ -172,7 +240,8 @@ extern "C" int mer_walk_launch(const void* start_hi, const void* start_lo,
                           (const int4*)p[4],     (const int4*)p[5],
                           mer_sizes[r]};
   }
-  const long long blocks = (E + kThreads - 1) / kThreads;
+  const long long per_block = (long long)kWarps * kWalkersPerWarp;
+  const long long blocks = (E + per_block - 1) / per_block;
   const uint32_t cap_mask = (uint32_t)(cap - 1);
   cudaStream_t s = (cudaStream_t)stream;
   if (seed_len > 0) {

@@ -59,7 +59,10 @@ def _ptr(t: torch.Tensor) -> int:
 
 
 def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+    """The current stream's handle (the raw query: a Stream object costs
+    microseconds of host time a launch)."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def _launched(op: str, lib, err: int) -> None:
@@ -127,17 +130,23 @@ def dht_lookup(slot_hi, slot_lo, used, max_probe, hi, lo, valid=None, *,
                                   hi, lo, valid)
     dev = hi.device
     cap, mp = _table_args(slot_hi, slot_lo, used, max_probe, dev)
-    fhi, flo, fval = hi.reshape(-1), lo.reshape(-1), valid.reshape(-1)
+    flat = hi.dim() == 1 and lo.dim() == 1 and valid.dim() == 1
+    fhi, flo, fval = (hi, lo, valid) if flat else (
+        hi.reshape(-1), lo.reshape(-1), valid.reshape(-1))
     for name, t, dt in (("hi", fhi, torch.int32), ("lo", flo, torch.int32),
                         ("valid", fval, torch.bool)):
         _check(name, t, dt, dev)
-    out = torch.empty(fhi.shape, dtype=torch.int32, device=dev)
+    n = fhi.shape[0]
+    if flo.shape[0] != n or fval.shape[0] != n:
+        raise ValueError(f"dht_lookup: hi, lo and valid hold {n}, "
+                         f"{flo.shape[0]} and {fval.shape[0]} queries")
+    out = torch.empty(hi.shape, dtype=torch.int32, device=dev)
     lib = build.library("dht_probe")
     err = lib.dht_lookup_launch(
         _ptr(slot_hi), _ptr(slot_lo), _ptr(used), _ptr(mp), cap, _ptr(fhi),
-        _ptr(flo), _ptr(fval), fhi.shape[0], _ptr(out), _stream(dev))
+        _ptr(flo), _ptr(fval), n, _ptr(out), _stream(dev))
     _launched("dht_lookup", lib, err)
-    return out.reshape(hi.shape)
+    return out
 
 
 # the device counters of the last dht_insert launch, by the names the
@@ -266,19 +275,20 @@ def mer_walk(wt, start_hi, start_lo, contig, active, *, mer_sizes: tuple,
         raise ValueError("mer_walk: rung capacities differ")
     if target_hi is None:
         seed_len = 0
-        target_hi = torch.zeros_like(start_hi)
-        target_lo = torch.zeros_like(start_lo)
     elif seed_len <= 0:
         raise ValueError("mer_walk: a target walk needs seed_len > 0")
-    keys_hi = tuple(t.slot_hi for t in wt.tables)
-    keys_lo = tuple(t.slot_lo for t in wt.tables)
-    used = tuple(t.used for t in wt.tables)
     kw = dict(mer_sizes=tuple(mer_sizes), tag_bits=tag_bits, max_ext=max_ext,
               min_votes=min_votes, dominance=dominance, seed_len=seed_len)
     if not _use_kernel(backend, start_hi):
+        if target_hi is None:
+            target_hi = torch.zeros_like(start_hi)
+            target_lo = torch.zeros_like(start_lo)
         return ref.mer_walk_ref(
             start_hi, start_lo, contig, active, target_hi, target_lo,
-            keys_hi, keys_lo, used, tuple(t.max_probe for t in wt.tables),
+            tuple(t.slot_hi for t in wt.tables),
+            tuple(t.slot_lo for t in wt.tables),
+            tuple(t.used for t in wt.tables),
+            tuple(t.max_probe for t in wt.tables),
             tuple(wt.right_hist), tuple(wt.left_hist), **kw)
     if not 1 <= n <= 3 or not all(1 <= m <= 31 for m in mer_sizes):
         raise ValueError(f"mer_walk: kernel takes 1..3 rungs of mers "
@@ -293,43 +303,49 @@ def mer_walk(wt, start_hi, start_lo, contig, active, *, mer_sizes: tuple,
         raise ValueError(f"table capacity {cap} is not a power of two")
     dev = start_hi.device
     E = start_hi.shape[0]
-    for name, t, dt in (("start_hi", start_hi, torch.int32),
-                        ("start_lo", start_lo, torch.int32),
-                        ("contig", contig, torch.int32),
-                        ("active", active, torch.bool),
-                        ("target_hi", target_hi, torch.int32),
-                        ("target_lo", target_lo, torch.int32)):
-        _check(name, t, dt, dev)
-        if t.shape != (E,):
-            raise ValueError(f"mer_walk: {name} has shape {tuple(t.shape)}, "
-                             f"walkers are [{E}]")
-    ptrs, keep = [], []  # keep: the max_probe tensors the launch reads
+    # one pass over every tensor the kernel reads, (tensor, dtype, shape);
+    # the extension walk has no target and passes null pointers.  Names
+    # are made only for an error message.
+    walkers = [start_hi, start_lo, contig, active]
+    if seed_len:
+        walkers += [target_hi, target_lo]
+    rungs = []  # 6 per rung, in the kernel's order
     for r, t in enumerate(wt.tables):
-        mp = torch.as_tensor(t.max_probe, dtype=torch.int32,
-                             device=dev).reshape(1)
-        keep.append(mp)
-        for name, a, dt in (("slot_hi", t.slot_hi, torch.int32),
-                            ("slot_lo", t.slot_lo, torch.int32),
-                            ("used", t.used, torch.bool),
-                            ("max_probe", mp, torch.int32),
-                            ("right_hist", wt.right_hist[r], torch.int32),
-                            ("left_hist", wt.left_hist[r], torch.int32)):
-            _check(f"rung {r} {name}", a, dt, dev)
-            ptrs.append(_ptr(a))
-        for h in (wt.right_hist[r], wt.left_hist[r]):
-            if h.shape != (cap, 4) or _ptr(h) % 16:
-                raise ValueError(f"mer_walk: rung {r} histogram must be a "
-                                 f"16-byte aligned [{cap}, 4] tensor")
-    out = MerWalkOut(
-        torch.full((E, max_ext), 4, dtype=torch.uint8, device=dev),
-        torch.empty((E,), dtype=torch.int32, device=dev),
-        torch.empty((E,), dtype=torch.int32, device=dev),
-        torch.empty((E,), dtype=torch.bool, device=dev),
-        torch.empty((E,), dtype=torch.int32, device=dev))
+        mp = torch.as_tensor(t.max_probe, dtype=torch.int32, device=dev)
+        rungs += [t.slot_hi, t.slot_lo, t.used, mp, wt.right_hist[r],
+                  wt.left_hist[r]]
+    rung_specs = ((torch.int32, (cap,)), (torch.int32, (cap,)),
+                  (torch.bool, (cap,)), (torch.int32, None),
+                  (torch.int32, (cap, 4)), (torch.int32, (cap, 4)))
+    specs = [(dt, (E,)) for dt in (torch.int32, torch.int32, torch.int32,
+                                   torch.bool, torch.int32, torch.int32)]
+    specs = specs[:len(walkers)] + list(rung_specs) * n
+    for i, (t, (dt, shape)) in enumerate(zip(walkers + rungs, specs)):
+        if (t.device != dev or t.dtype != dt or not t.is_contiguous()
+                or (t.numel() != 1 if shape is None else t.shape != shape)):
+            names = ["start_hi", "start_lo", "contig", "active",
+                     "target_hi", "target_lo"][:len(walkers)] + [
+                f"rung {r} {a}" for r in range(n) for a in (
+                    "slot_hi", "slot_lo", "used", "max_probe", "right_hist",
+                    "left_hist")]
+            raise ValueError(
+                f"mer_walk: {names[i]} must be a contiguous {dt} tensor on "
+                f"{dev} of shape {shape or '(1,)'}; got {t.dtype} on "
+                f"{t.device}, shape {tuple(t.shape)}, contiguous="
+                f"{t.is_contiguous()}")
+    ptrs = [_ptr(t) for t in rungs]
+    if any(p % 16 for p in ptrs[4::6] + ptrs[5::6]):
+        raise ValueError("mer_walk: the kernel loads 16-byte histogram "
+                         "rows: histograms must be 16-byte aligned")
+    ints = torch.empty((3, E), dtype=torch.int32, device=dev)
+    out = MerWalkOut(torch.empty((E, max_ext), dtype=torch.uint8, device=dev),
+                     ints[0], ints[1],
+                     torch.empty((E,), dtype=torch.bool, device=dev), ints[2])
     lib = build.library("mer_walk")
     err = lib.mer_walk_launch(
         _ptr(start_hi), _ptr(start_lo), _ptr(contig), _ptr(active),
-        _ptr(target_hi), _ptr(target_lo), E,
+        _ptr(target_hi) if seed_len else None,
+        _ptr(target_lo) if seed_len else None, E,
         (ctypes.c_void_p * len(ptrs))(*ptrs),
         (ctypes.c_int * n)(*mer_sizes), n, cap, tag_bits, max_ext,
         min_votes, dominance, seed_len, *map(_ptr, out), _stream(dev))

@@ -116,6 +116,23 @@ def dht_lookup_ref(slot_hi, slot_lo, used, max_probe, hi, lo, valid):
     return slots.reshape(hi.shape)
 
 
+def dht_lookup_work(slot_hi, slot_lo, used, max_probe, hi, lo, valid) -> dict:
+    """What a lookup of these queries needs, for its bound: the rows, the
+    valid rows, the table slots their probe chains examine (`_probe`), and
+    the bytes: `valid` read and the slot written for every row (5 a row),
+    the valid rows' key lanes (8 a row), 9 a slot examined (`used`,
+    `slot_hi`, `slot_lo`) and max_probe (4).  'bytes_every_row' counts
+    every row's key lanes and 9 bytes a valid row instead (13 n + 9 n_valid
+    + 4), the count the kernel was first held to."""
+    live = valid.reshape(-1).nonzero().squeeze(1)
+    _, slots = _probe(slot_hi, slot_lo, used, max_probe, hi.reshape(-1),
+                      lo.reshape(-1), live)
+    n, n_valid = hi.numel(), live.numel()
+    return dict(rows=n, valid=n_valid, slots=slots,
+                bytes=5 * n + 8 * n_valid + 9 * slots + 4,
+                bytes_every_row=13 * n + 9 * n_valid + 4)
+
+
 def dht_insert_ref(slot_hi, slot_lo, used, max_probe, hi, lo, valid):
     """Plain version of dht_insert: `repro/core/dht.py:insert_jnp`.
 
@@ -215,8 +232,9 @@ def mer_walk_ref(start_hi, start_lo, contig, active, target_hi, target_lo,
     histograms), not stacked.  Only the walker's current rung is probed
     (probes have no side effects, so the reference's probes of the other
     rungs change nothing) and only ACTIVE walkers are carried from step
-    to step.  `counts`, if given, receives the walker steps taken and the
-    table slots examined ('steps', 'probes').
+    to step.  `counts`, if given, receives the walker steps taken, the
+    table slots examined and the steps of the longest walk, which are the
+    loop's iterations ('steps', 'probes', 'rounds').
     """
     E = start_hi.shape[0]
     dev = start_hi.device
@@ -232,10 +250,11 @@ def mer_walk_ref(start_hi, start_lo, contig, active, target_hi, target_lo,
     hit = torch.zeros((E,), dtype=torch.bool, device=dev)
     hit_pos = torch.full((E,), -1, dtype=torch.int32, device=dev)
     live = active.nonzero().squeeze(1)
-    steps = probes = 0
+    steps = probes = rounds = 0
     for _ in range(max_ext):
         if not live.numel():
             break
+        rounds += 1
         steps += live.numel()
         bh, bl, rg = buf_hi[live], buf_lo[live], rung[live]
         hist = torch.zeros((live.numel(), 4), dtype=torch.int32, device=dev)
@@ -289,6 +308,7 @@ def mer_walk_ref(start_hi, start_lo, contig, active, target_hi, target_lo,
     if counts is not None:
         counts["steps"] = counts.get("steps", 0) + steps
         counts["probes"] = counts.get("probes", 0) + probes
+        counts["rounds"] = counts.get("rounds", 0) + rounds
     return MerWalkOut(out, out_len, status, hit, hit_pos)
 
 

@@ -128,6 +128,55 @@ def test_kmer_extract_kernel_edges_equal_plain(dev, k, L):
               ops.kmer_extract(b, lengths, k=k, backend="torch"))
 
 
+# dht_lookup cases: (rows, capacity, keys inserted, share of valid rows)
+LOOKUP_CASES = {
+    "valid_0": (100_003, 1 << 17, 60_000, 0.0),
+    "valid_1pct": (100_003, 1 << 17, 60_000, 0.01),
+    "valid_10pct": (100_003, 1 << 17, 60_000, 0.1),
+    "valid_all": (100_003, 1 << 17, 60_000, 1.0),
+    "ragged_small": (37, 1 << 10, 500, 0.5),
+    "unaligned": (50_001, 1 << 16, 30_000, 0.3),
+    "nearly_full": (40_000, 1 << 14, 16_200, 0.9),
+    "max_probe_0": (40_000, 1 << 14, 16_200, 0.9),
+}
+
+
+@pytest.mark.parametrize("case", list(LOOKUP_CASES))
+def test_dht_lookup_kernel_cases_equal_plain(dev, case):
+    """The kernel against the plain version: validity shares 0 to 100%, n not a multiple of 16 (and of
+    the 512-row tile), views off 16-byte alignment (the scalar edge
+    paths), a nearly full table with long probe chains, and a max_probe
+    of 0 that cuts them (the plain version stops at the same step)."""
+    n, cap, m, vf = LOOKUP_CASES[case]
+    rng = np.random.default_rng(n + cap + int(100 * vf))
+    khi, klo = _keys(rng, m, dev, dup_frac=0.0)
+    table = ops.dht_insert(*dht.empty_table(cap, dev), khi, klo,
+                           torch.ones(m, dtype=torch.bool, device=dev))[:4]
+    if case == "max_probe_0":
+        table = (*table[:3], torch.zeros((), dtype=torch.int32, device=dev))
+    else:
+        assert int(table[3]) > 0 or case == "ragged_small"
+    # queries: half inserted keys (present), half random (mostly absent)
+    qhi, qlo = _keys(rng, n, dev, dup_frac=0.0)
+    take = torch.from_numpy(rng.integers(0, m, size=n)).to(dev)
+    half = torch.from_numpy(rng.random(n) < 0.5).to(dev)
+    qhi = torch.where(half, khi[take], qhi)
+    qlo = torch.where(half, klo[take], qlo)
+    valid = torch.from_numpy(rng.random(n) < vf).to(dev)
+    if case == "unaligned":
+        qhi, qlo, valid = _offset(qhi), _offset(qlo), _offset(valid, by=3)
+        assert valid.data_ptr() % 16 and qhi.data_ptr() % 16
+    ops.reset_launches()
+    got = ops.dht_lookup(*table, qhi, qlo, valid)
+    assert ops.LAUNCHES["dht_lookup"] == 1
+    want = ops.dht_lookup(*table, qhi, qlo, valid, backend="torch")
+    _same([got], [want])
+    if vf == 0.0:
+        assert bool((want == -1).all())
+    elif case != "ragged_small":
+        assert int((want >= 0).sum()) > 0
+
+
 def _insert_case(rng, dev, case):
     """(table, hi, lo, valid) of one dht_insert case."""
     if case == "dup90":
@@ -410,6 +459,64 @@ def test_mer_walk_kernel_equals_plain(dev, mer_sizes, capacity, E, max_ext,
     want = ops.mer_walk(wt, *walkers, backend="torch", **kw)
     _same(got, want)
     assert int(want.ext_len.max()) > 0
+
+
+def test_mer_walk_kernel_on_nearly_full_tables(dev):
+    """Rung tables of (13, 17, 21) loaded to 88% / 70% / 54%: keys past
+    their home slot, probe chains of up to hundreds of slots."""
+    rng = np.random.default_rng(5)
+    mer_sizes = (13, 17, 21)
+    wt, tag_bits, walkers, _ = _walk_fixture(
+        rng, dev, mer_sizes, 1 << 13, 2000, 13, num_reads=400, L=40)
+    for t in wt.tables:  # loaded, and many keys away from their home slot
+        load = float(t.used.float().mean())
+        home = kmer.kmer_hash(t.slot_hi, t.slot_lo) & (t.capacity - 1)
+        moved = float((t.used & (home != torch.arange(
+            t.capacity, device=dev))).sum()) / max(int(t.used.sum()), 1)
+        assert load > 0.5 and moved > 0.2 and int(t.max_probe) >= 4
+    kw = dict(mer_sizes=mer_sizes, tag_bits=tag_bits, max_ext=64)
+    got = ops.mer_walk(wt, *walkers, **kw)
+    want = ops.mer_walk(wt, *walkers, backend="torch", **kw)
+    _same(got, want)
+    assert int(want.ext_len.max()) > 0
+
+
+def test_mer_walk_kernel_131072_walkers_2pct_active(dev):
+    """The gap walk's shape: 131,072 walkers, ~2% active, with a target."""
+    rng = np.random.default_rng(131072)
+    wt, tag_bits, (hi, lo, contig, _), (t_hi, t_lo) = _walk_fixture(
+        rng, dev, (17, 21, 25), 1 << 14, 131_072, 17)
+    active = torch.from_numpy(rng.random(131_072) < 0.02).to(dev)
+    active[0::64] = True  # the read windows among them
+    kw = dict(mer_sizes=(17, 21, 25), tag_bits=tag_bits, max_ext=64,
+              target_hi=t_hi, target_lo=t_lo, seed_len=17)
+    got = ops.mer_walk(wt, hi, lo, contig, active, **kw)
+    want = ops.mer_walk(wt, hi, lo, contig, active, backend="torch", **kw)
+    _same(got, want)
+    assert int(want.ext_len.max()) > 0
+
+
+@pytest.mark.parametrize("max_ext", [64, 37])
+def test_mer_walk_kernel_writes_every_pad_byte(dev, max_ext):
+    """The kernel's output comes from torch.empty: it writes pad 4 past
+    each walker's ext_len itself.  The caching allocator is first handed
+    a block of the same size filled with 0xAB, which the output gets."""
+    rng = np.random.default_rng(max_ext)
+    E = 3001
+    wt, tag_bits, walkers, _ = _walk_fixture(rng, dev, (17, 21, 25),
+                                             1 << 12, E, 17)
+    kw = dict(mer_sizes=(17, 21, 25), tag_bits=tag_bits, max_ext=max_ext)
+    torch.cuda.synchronize()
+    junk = torch.full((E, max_ext), 0xAB, dtype=torch.uint8, device=dev)
+    junk_ptr = junk.data_ptr()
+    del junk
+    got = ops.mer_walk(wt, *walkers, **kw)
+    assert got.ext_bases.data_ptr() == junk_ptr
+    col = torch.arange(max_ext, device=dev)[None, :]
+    past = col >= got.ext_len[:, None].to(torch.int64)
+    assert bool((got.ext_bases[past] == 4).all())
+    assert bool((got.ext_bases[~past] < 4).all())
+    _same(got, ops.mer_walk(wt, *walkers, backend="torch", **kw))
 
 
 def test_assemble_on_card_equals_cpu(dev):
