@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py [--num-pairs N] [--num-genomes G]
 
-Drives the port's three assembly paths on one virome-like community: 24
+Drives the port's assembly paths on one virome-like community (under
+`Local`, paths 1-3, and under `Mesh(8)`, path 6): 24
 genomes of 10-30 kbp (4 of them 1%-divergent strains), 150k reads of
 2 x 150 bp at ~45x mean coverage, and its two LM serving paths at full
 width with random fp32 weights: llama3.2-3b (path 4) and the hybrid
@@ -56,10 +57,29 @@ Steps:
      the plain path equal to the kernel path; and the streamed run of
      path 2's plan over the same reads equal to path 2's `assemble` in
      scaffold sequences and alive contigs;
-  7. small inputs on the card against the same runs on the CPU (all
+  7. path 6, the `Mesh(8)` context (8 shards one after another on the
+     card, each on its row block, the owner exchanges as transposes),
+     counts reset just before each sub-path and read just after: 6a
+     `Assembler(plan8, Mesh(8)).assemble` with path 2's plan at
+     num_shards=8: path 2's five kernels launched, per stage times, peak
+     memory beside path 2's and `plan.bytes()`, every overflow 0, round
+     1's n_kmers and n_contigs equal to path 2's, the verbatim-piece
+     share within 0.02 of path 2's, a profiled run, rows
+     `<kernel>_mesh`, and the plain path equal to the kernel path; 6b
+     `assemble_stream` under `Mesh(8)` from path 3's FASTQ with path 3's
+     plan at num_shards=8 and a per-shard pre-combine that fits a
+     shard's block of a batch: all six kernels launched, alive and
+     scaffold_seqs equal to path 3's, overflow 0, rows
+     `<kernel>_mesh_stream`; 6c the profile-HMM scorer (`core.hmm`) on
+     the card over path 2's contigs with a profile from a seeded
+     200-base window of genome 0 (its wall time and the positions it
+     looped over; at least one contig flagged, a seeded random row not;
+     flags and scores (1e-4) equal to the CPU run), then
+     `assemble(hmm_hit=...)` on the kernels;
+  8. small inputs on the card against the same runs on the CPU (all
      paths, `low_memory=True`, and a checkpointed `assemble_stream` whose
      second run resumes every k);
-  8. path 4, the LM serving path: llama3.2-3b (28 layers, d_model 3072,
+  9. path 4, the LM serving path: llama3.2-3b (28 layers, d_model 3072,
      3.213 G parameters) built on the card by `init_params` from a seeded
      torch.Generator; `forward(use_kernel=True)` on 2 x 4096 seeded
      tokens, counts reset just before and read just after: flash_attention
@@ -71,7 +91,7 @@ Steps:
      of 16-128 tokens for 160 greedy steps (steps/s, tokens/s), each
      slot's first token's logits against a prefill of the 8 prompts; 32
      decode steps under torch.profiler; stage times and peak memory;
-  9. path 5, the hybrid serving path: zamba2-7b (81 Mamba-2 layers in 13
+  10. path 5, the hybrid serving path: zamba2-7b (81 Mamba-2 layers in 13
      groups of 6 and a tail of 3, d_model 3584, 112 SSM heads of
      P = N = 64, one weight-tied shared attention + GLU block with 32
      heads of 112 after every group; 10,872,216,432 parameters, the
@@ -204,6 +224,15 @@ HYBRID_LOGIT_TOL = 5e-3
 # (tests/test_kernels.py): chunked sums in another order
 SSD_TOL = 2e-4
 WITNESS_GROUPS = 3  # the float64 witness runs the first 3 groups
+# path 6, the Mesh context
+MESH_SHARDS = 8  # the reference's Mesh default
+MESH_PLAIN_REPS = 5  # its rows time the plain version 5 times, not 20
+# the reference's Mesh-vs-Local tolerance on quality
+# (tests/test_distributed.py): genome fraction at most 0.02 below
+MESH_QUALITY_TOL = 0.02
+HMM_SEED, HMM_WINDOW = 23, 200
+HMM_DEVICE = "cuda"
+HMM_SCORE_TOL = 1e-4
 
 
 def log(*a):
@@ -480,13 +509,14 @@ def host_ms(fn, reps=20) -> float:
     return float(np.median(times)) * 1e3
 
 
-def hold_against_plain(row, call, ops, launches, path):
+def hold_against_plain(row, call, ops, launches, path, plain_reps=20):
     """The kernel against its plain version on one recorded call: equal
-    bit for bit, both timed; returns the row's JSON record.  dht_lookup
-    and mer_walk rows also carry the op's host time a call, and their
-    kernel time is the median of three passes, each a median of 20,
-    with the passes beside it (`ms_passes`): their calls are short, and
-    one pass can move by a tenth."""
+    bit for bit, both timed (the plain version a median of `plain_reps`);
+    returns the row's JSON record.  dht_lookup and mer_walk rows also
+    carry the op's host time a call, and their kernel time is the median
+    of three passes, each a median of 20, with the passes beside it
+    (`ms_passes`): their calls are short, and one pass can move by a
+    tenth."""
     _, name, cargs, ckw = call
     source, replaces = KERNELS[name]
     fn = getattr(ops, name)
@@ -518,7 +548,8 @@ def hold_against_plain(row, call, ops, launches, path):
         ms = float(np.median(extra["ms_passes"]))
     else:
         ms = median_ms(lambda: fn(*cargs, **ckw))
-    plain_ms = median_ms(lambda: fn(*cargs, **ckw, backend="torch"))
+    plain_ms = median_ms(lambda: fn(*cargs, **ckw, backend="torch"),
+                         reps=plain_reps)
     b_ms, b_by, fields = bound(name, cargs, ckw, ops, row)
     extra.update(fields)
     if name in ("dht_lookup", "mer_walk"):
@@ -983,7 +1014,9 @@ def phase_assemble(api, ops, reads, comm):
     path2 = dict(plan=plan, peak=peak, alive=out["alive"].cpu(),
                  contigs=type(out["contigs"])(*(x.cpu()
                                                 for x in out["contigs"])),
-                 scaffold_seqs=type(seqs)(*(x.cpu() for x in seqs)))
+                 scaffold_seqs=type(seqs)(*(x.cpu() for x in seqs)),
+                 stats=out["stats"], share=share,
+                 wall=sum(t for t, _ in clock.stages.values()))
     return records, path2
 
 
@@ -1013,149 +1046,150 @@ def assert_same_stream(a, b, what):
         raise AssertionError(f"{what}: stream_stats differ")
 
 
-def phase_stream(api, ops, reads, comm, path2):
-    """Path 3: out-of-core `assemble_stream` from a FASTQ file with gapped
-    alignment.  Returns the JSON records of its kernel rows."""
+def phase_stream(api, ops, reads, comm, path2, tmp):
+    """Path 3: out-of-core `assemble_stream` from a FASTQ file (written to
+    the directory `tmp`) with gapped alignment.  Returns the JSON records
+    of its kernel rows and what path 6b compares with."""
     Assembler, AssemblyPlan, Local = api
     from repro_torch.data.fastq import iter_fastq_batches
     from repro_torch.stream import BatchSource, batches_from_readset
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
-    try:
-        fq = os.path.join(tmp, "reads.fq")
+    fq = os.path.join(tmp, "reads.fq")
+    t0 = time.perf_counter()
+    write_fastq(reads, fq)
+    log(f"path 3 FASTQ: {reads.num_reads} reads, "
+        f"{os.path.getsize(fq) / 1e6:.1f} MB, written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    src = BatchSource(lambda: iter_fastq_batches(
+        fq, batch_reads=STREAM_BATCH, max_len=reads.max_len,
+        insert_size=reads.insert_size))
+    t0 = time.perf_counter()
+    fq_batches = list(src)
+    parse_s = time.perf_counter() - t0
+    ref_batches = batches_from_readset(reads, STREAM_BATCH)
+    if len(fq_batches) != len(ref_batches):
+        raise AssertionError("FASTQ batches != batches_from_readset")
+    for a, b in zip(fq_batches, ref_batches):
+        for f in ("bases", "lengths", "mate"):
+            if not torch.equal(getattr(a, f), getattr(b, f).cpu()):
+                raise AssertionError(f"FASTQ batch {f} differs from "
+                                     f"batches_from_readset")
+    n_batches = len(fq_batches)
+    del fq_batches, ref_batches
+    log(f"path 3 source: {n_batches} batches of {STREAM_BATCH} reads "
+        f"(the last padded), equal to batches_from_readset; one pass "
+        f"of the host FASTQ parse: {parse_s:.2f} s")
+    content = sum(len(g) for g in comm.genomes)
+    plan = AssemblyPlan.from_stream(STREAM_BATCH, reads.max_len,
+                                    (17, 21, 4), unique_kmers=content,
+                                    gapped_align=True)
+    log(f"path 3 plan: from_stream(unique_kmers={content}, gapped_align"
+        f"=True): kmer_capacity={plan.kmer_capacity} bloom_slots="
+        f"{plan.bloom_slots} walk_capacity={plan.walk_capacity} "
+        f"contig_cap={plan.contig_cap} max_contig_len="
+        f"{plan.max_contig_len} plan.bytes()={plan.bytes() / 1e9:.2f} GB "
+        f"(path 2: {path2['plan'].bytes() / 1e9:.2f} GB)")
+
+    # ---- main path with the kernels (clean: no recorder, profiler) --
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    out, clock = run_stream(Assembler, Local, plan, src, ops, "kernels")
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"launches in assemble_stream: {launches}")
+    log(f"peak device memory (assemble_stream): {peak / 1e9:.2f} GB "
+        f"(path 2 assemble: {path2['peak'] / 1e9:.2f} GB); overflow: "
+        f"{out['overflow']}")
+    check_path_kernels(launches, PATH3_KERNELS, "path 3")
+    want_sw = 3 * n_batches * 2
+    if launches["sw_extend"] != want_sw or clock.launches() != want_sw:
+        raise AssertionError(f"sw_extend launched {launches['sw_extend']}"
+                             f" times, expected {want_sw}: "
+                             f"{clock.stages}")
+    if out["overflow"].get("kmer_table"):
+        raise AssertionError(f"k-mer table overflow: {out['overflow']}")
+    for s in out["stats"]:
+        st = out["stream_stats"][s.k]
+        log(f"[kernels] round k={s.k}: n_kmers={s.n_kmers}, n_contigs="
+            f"{s.n_contigs}, extended_bases={s.extended_bases}, "
+            f"aligned_frac={s.aligned_frac:.4f}; stream: "
+            f"{st.occurrences_admitted}/{st.occurrences_total} "
+            f"occurrences admitted ({st.admitted_frac:.4f}), batches "
+            f"{st.batches_pass1}+{st.batches_pass2}")
+    scaffs, seqs, links = out["scaffolds"], out["scaffold_seqs"], \
+        out["links"]
+    nm = scaffs.n_members
+    n_gaps = int((nm - 1).clamp(min=0).sum())
+    closed = int(seqs.closed.sum())
+    slens = seqs.lengths.cpu().numpy()
+    slens = slens[slens > 0]
+    share, n_pieces = scaffold_piece_matches(seqs, comm)
+    if not (len(slens) and torch.isfinite(links.gap).all()
+            and seqs.bases.shape == (plan.contig_cap,
+                                     plan.max_scaffold_len)
+            and out["alignments"].contig.shape == (
+                n_batches * STREAM_BATCH, 2)
+            and torch.isfinite(out["contigs"].depths).all()):
+        raise AssertionError("assemble_stream output has the wrong "
+                             "shape, no scaffold or non-finite values")
+    log(f"scaffolds: {int(scaffs.n_scaffolds)}, multi-contig "
+        f"{int((nm >= 2).sum())}, links {int(links.valid.sum())} valid, "
+        f"gaps closed {closed} / open {n_gaps - closed}; scaffold N50 "
+        f"{n50(slens)}, longest {int(slens.max())}, {int(slens.sum())} "
+        f"bp; {share:.3f} of {n_pieces} pieces (the 200 longest "
+        f"scaffolds split at N runs) are verbatim genome substrings")
+    if share < MIN_QUALITY or out["stats"][-1].aligned_frac < MIN_QUALITY:
+        raise AssertionError("streamed assembly quality collapsed")
+    # what the peak is made of: one seed-index build over the dense
+    # contig buffer, a transient that does not depend on the reads
+    from repro_torch.core.alignment import build_seed_index
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    build_seed_index(out["contigs"], out["alive"], seed_len=21,
+                     capacity=plan.seed_cap)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - held
+    log(f"one seed-index build over the "
+        f"{list(out['contigs'].bases.shape)} contig buffer: peak "
+        f"{extra / 1e9:.2f} GB above the {held / 1e9:.2f} GB held")
+
+    # ---- where the time goes: one profiled run ----
+    profile(lambda: Assembler(plan, Local()).assemble_stream(src),
+            "assemble_stream")
+
+    # ---- the inputs of each kernel's largest call (a warm run) ----
+    with Recorder(ops, PATH3_KERNELS,
+                  lambda name, a, kw: f"{name}_stream") as rec:
         t0 = time.perf_counter()
-        write_fastq(reads, fq)
-        log(f"path 3 FASTQ: {reads.num_reads} reads, "
-            f"{os.path.getsize(fq) / 1e6:.1f} MB, written in "
-            f"{time.perf_counter() - t0:.2f} s")
-        src = BatchSource(lambda: iter_fastq_batches(
-            fq, batch_reads=STREAM_BATCH, max_len=reads.max_len,
-            insert_size=reads.insert_size))
-        t0 = time.perf_counter()
-        fq_batches = list(src)
-        parse_s = time.perf_counter() - t0
-        ref_batches = batches_from_readset(reads, STREAM_BATCH)
-        if len(fq_batches) != len(ref_batches):
-            raise AssertionError("FASTQ batches != batches_from_readset")
-        for a, b in zip(fq_batches, ref_batches):
-            for f in ("bases", "lengths", "mate"):
-                if not torch.equal(getattr(a, f), getattr(b, f).cpu()):
-                    raise AssertionError(f"FASTQ batch {f} differs from "
-                                         f"batches_from_readset")
-        n_batches = len(fq_batches)
-        del fq_batches, ref_batches
-        log(f"path 3 source: {n_batches} batches of {STREAM_BATCH} reads "
-            f"(the last padded), equal to batches_from_readset; one pass "
-            f"of the host FASTQ parse: {parse_s:.2f} s")
-        content = sum(len(g) for g in comm.genomes)
-        plan = AssemblyPlan.from_stream(STREAM_BATCH, reads.max_len,
-                                        (17, 21, 4), unique_kmers=content,
-                                        gapped_align=True)
-        log(f"path 3 plan: from_stream(unique_kmers={content}, gapped_align"
-            f"=True): kmer_capacity={plan.kmer_capacity} bloom_slots="
-            f"{plan.bloom_slots} walk_capacity={plan.walk_capacity} "
-            f"contig_cap={plan.contig_cap} max_contig_len="
-            f"{plan.max_contig_len} plan.bytes()={plan.bytes() / 1e9:.2f} GB "
-            f"(path 2: {path2['plan'].bytes() / 1e9:.2f} GB)")
-
-        # ---- main path with the kernels (clean: no recorder, profiler) --
+        Assembler(plan, Local()).assemble_stream(src)
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launches()
-        out, clock = run_stream(Assembler, Local, plan, src, ops, "kernels")
-        launches = dict(ops.LAUNCHES)
-        peak = torch.cuda.max_memory_allocated()
-        log(f"launches in assemble_stream: {launches}")
-        log(f"peak device memory (assemble_stream): {peak / 1e9:.2f} GB "
-            f"(path 2 assemble: {path2['peak'] / 1e9:.2f} GB); overflow: "
-            f"{out['overflow']}")
-        check_path_kernels(launches, PATH3_KERNELS, "path 3")
-        want_sw = 3 * n_batches * 2
-        if launches["sw_extend"] != want_sw or clock.launches() != want_sw:
-            raise AssertionError(f"sw_extend launched {launches['sw_extend']}"
-                                 f" times, expected {want_sw}: "
-                                 f"{clock.stages}")
-        if out["overflow"].get("kmer_table"):
-            raise AssertionError(f"k-mer table overflow: {out['overflow']}")
-        for s in out["stats"]:
-            st = out["stream_stats"][s.k]
-            log(f"[kernels] round k={s.k}: n_kmers={s.n_kmers}, n_contigs="
-                f"{s.n_contigs}, extended_bases={s.extended_bases}, "
-                f"aligned_frac={s.aligned_frac:.4f}; stream: "
-                f"{st.occurrences_admitted}/{st.occurrences_total} "
-                f"occurrences admitted ({st.admitted_frac:.4f}), batches "
-                f"{st.batches_pass1}+{st.batches_pass2}")
-        scaffs, seqs, links = out["scaffolds"], out["scaffold_seqs"], \
-            out["links"]
-        nm = scaffs.n_members
-        n_gaps = int((nm - 1).clamp(min=0).sum())
-        closed = int(seqs.closed.sum())
-        slens = seqs.lengths.cpu().numpy()
-        slens = slens[slens > 0]
-        share, n_pieces = scaffold_piece_matches(seqs, comm)
-        if not (len(slens) and torch.isfinite(links.gap).all()
-                and seqs.bases.shape == (plan.contig_cap,
-                                         plan.max_scaffold_len)
-                and out["alignments"].contig.shape == (
-                    n_batches * STREAM_BATCH, 2)
-                and torch.isfinite(out["contigs"].depths).all()):
-            raise AssertionError("assemble_stream output has the wrong "
-                                 "shape, no scaffold or non-finite values")
-        log(f"scaffolds: {int(scaffs.n_scaffolds)}, multi-contig "
-            f"{int((nm >= 2).sum())}, links {int(links.valid.sum())} valid, "
-            f"gaps closed {closed} / open {n_gaps - closed}; scaffold N50 "
-            f"{n50(slens)}, longest {int(slens.max())}, {int(slens.sum())} "
-            f"bp; {share:.3f} of {n_pieces} pieces (the 200 longest "
-            f"scaffolds split at N runs) are verbatim genome substrings")
-        if share < MIN_QUALITY or out["stats"][-1].aligned_frac < MIN_QUALITY:
-            raise AssertionError("streamed assembly quality collapsed")
-        # what the peak is made of: one seed-index build over the dense
-        # contig buffer, a transient that does not depend on the reads
-        from repro_torch.core.alignment import build_seed_index
-        torch.cuda.synchronize()
-        held = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        build_seed_index(out["contigs"], out["alive"], seed_len=21,
-                         capacity=plan.seed_cap)
-        torch.cuda.synchronize()
-        extra = torch.cuda.max_memory_allocated() - held
-        log(f"one seed-index build over the "
-            f"{list(out['contigs'].bases.shape)} contig buffer: peak "
-            f"{extra / 1e9:.2f} GB above the {held / 1e9:.2f} GB held")
+        log(f"warm assemble_stream (recording inputs): "
+            f"{time.perf_counter() - t0:.3f} s")
+    rec.check_counts(launches)
+    log(f"sw_extend calls' share of pairs with qlen = 0 (no candidate): "
+        + ", ".join(f"{x:.4f}" for x in rec.no_candidate))
+    records = [hold_against_plain(row, call, ops, launches[call[1]],
+                                  "stream")
+               for row, call in rec.calls.items()]
+    del rec
 
-        # ---- where the time goes: one profiled run ----
-        profile(lambda: Assembler(plan, Local()).assemble_stream(src),
-                "assemble_stream")
-
-        # ---- the inputs of each kernel's largest call (a warm run) ----
-        with Recorder(ops, PATH3_KERNELS,
-                      lambda name, a, kw: f"{name}_stream") as rec:
-            t0 = time.perf_counter()
-            Assembler(plan, Local()).assemble_stream(src)
-            torch.cuda.synchronize()
-            log(f"warm assemble_stream (recording inputs): "
-                f"{time.perf_counter() - t0:.3f} s")
-        rec.check_counts(launches)
-        log(f"sw_extend calls' share of pairs with qlen = 0 (no candidate): "
-            + ", ".join(f"{x:.4f}" for x in rec.no_candidate))
-        records = [hold_against_plain(row, call, ops, launches[call[1]],
-                                      "stream")
-                   for row, call in rec.calls.items()]
-        del rec
-
-        # ---- the same path with the plain versions on the card ----
-        plain_plan = dataclasses.replace(plan, kernel_backend="torch")
-        ops.reset_launches()
-        p_out, _ = run_stream(Assembler, Local, plain_plan, src, ops, "plain")
-        if any(ops.LAUNCHES.values()):
-            raise AssertionError(f"plain run launched kernels: "
-                                 f"{ops.LAUNCHES}")
-        assert_same_stream(out, p_out, "assemble_stream (kernels vs plain)")
-        log("plain path: identical " + ", ".join(ASSEMBLE_KEYS)
-            + ", stats, stream_stats")
-        del out, p_out
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    # ---- the same path with the plain versions on the card ----
+    plain_plan = dataclasses.replace(plan, kernel_backend="torch")
+    ops.reset_launches()
+    p_out, _ = run_stream(Assembler, Local, plain_plan, src, ops, "plain")
+    if any(ops.LAUNCHES.values()):
+        raise AssertionError(f"plain run launched kernels: "
+                             f"{ops.LAUNCHES}")
+    assert_same_stream(out, p_out, "assemble_stream (kernels vs plain)")
+    log("plain path: identical " + ", ".join(ASSEMBLE_KEYS)
+        + ", stats, stream_stats")
+    path3 = dict(plan=plan, src=src, n_batches=n_batches,
+                 wall=sum(t for t, _ in clock.stages.values()),
+                 alive=out["alive"].cpu(),
+                 scaffold_seqs=type(seqs)(*(x.cpu() for x in seqs)))
+    del out, p_out
 
     # ---- streamed = in-memory: path 2's plan over the same reads ----
     t0 = time.perf_counter()
@@ -1175,6 +1209,225 @@ def phase_stream(api, ops, reads, comm, path2):
         f"{same_bases}; contig depths that differ: {n_depths} (round-2 "
         f"counts of contig k-mers lack the read singletons the two-sighting "
         f"rule drops)")
+    return records, path3
+
+
+def assert_no_overflow(out, what):
+    if not out["overflow"] or any(out["overflow"].values()):
+        raise AssertionError(f"{what}: overflow {out['overflow']}")
+
+
+def phase_mesh(api, ops, reads, comm, path2, path3):
+    """Path 6: the Mesh context, 8 shards on the card, each shard's stage
+    on its row block, the owner exchanges as transposes.  6a `assemble`
+    with path 2's plan, 6b `assemble_stream` from path 3's FASTQ with
+    path 3's plan, 6c the profile-HMM scorer over path 2's contigs and an
+    `assemble` with its flags.  Returns the JSON records of its kernel
+    rows (`<kernel>_mesh`, `<kernel>_mesh_stream`)."""
+    Assembler, AssemblyPlan, Local = api
+    from repro_torch.api import Mesh
+    from repro_torch.dist.capacity import next_pow2
+
+    S = MESH_SHARDS
+    t_path = time.perf_counter()
+
+    # ---- 6a: assemble ----
+    plan = AssemblyPlan.from_dataset(reads, (17, 21, 4), unique_rate=0.1,
+                                     num_shards=S)
+    if dataclasses.replace(path2["plan"], num_shards=S) != plan:
+        raise AssertionError("path 6a's plan is not path 2's with 8 shards")
+    log(f"path 6a plan: path 2's with num_shards={S}: pre_cap "
+        f"{plan.pre_cap}, shard_table_cap {plan.shard_table_cap}, "
+        f"route_cap {plan.route_cap}, localize_out_factor "
+        f"{plan.localize_out_factor}; plan.bytes() (a shard) "
+        f"{plan.bytes() / 1e9:.2f} GB")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    out, clock = run_clocked(
+        lambda hook: Assembler(plan, Mesh(S)).assemble(reads, hook=hook),
+        StageClock(ops, "mer_walk", assemble_label), "mesh",
+        "Mesh(8) assemble")
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    wall = sum(t for t, _ in clock.stages.values())
+    log(f"launches in Mesh(8) assemble: {launches}")
+    check_path_kernels(launches, PATH2_KERNELS, "path 6a")
+    log(f"peak device memory (Mesh(8) assemble): {peak / 1e9:.2f} GB; "
+        f"path 2 (Local): {path2['peak'] / 1e9:.2f} GB; plan.bytes(): "
+        f"{plan.bytes() / 1e9:.2f} GB a shard, {S * plan.bytes() / 1e9:.2f}"
+        f" GB for {S} shards (not gated); wall {wall:.3f} s, path 2 "
+        f"{path2['wall']:.3f} s; overflow {out['overflow']}")
+    assert_no_overflow(out, "path 6a")
+    for s, p in zip(out["stats"], path2["stats"]):
+        log(f"[mesh] round k={s.k}: n_kmers={s.n_kmers} (path 2: "
+            f"{p.n_kmers}), n_contigs={s.n_contigs} ({p.n_contigs}), "
+            f"extended_bases={s.extended_bases} ({p.extended_bases}), "
+            f"aligned_frac={s.aligned_frac:.4f} ({p.aligned_frac:.4f}), "
+            f"route_overflow={s.route_overflow}")
+    r1, p1 = out["stats"][0], path2["stats"][0]
+    if (r1.n_kmers, r1.n_contigs) != (p1.n_kmers, p1.n_contigs):
+        raise AssertionError("round 1 of Mesh(8) differs from path 2's: "
+                             "gather_ksets is exact and round 1 has no "
+                             "contig evidence")
+    share, n_pieces = scaffold_piece_matches(out["scaffold_seqs"], comm)
+    slens = out["scaffold_seqs"].lengths.cpu().numpy()
+    slens = slens[slens > 0]
+    log(f"Mesh(8) scaffolds: {int(out['scaffolds'].n_scaffolds)}, N50 "
+        f"{n50(slens)}, {int(slens.sum())} bp; {share:.3f} of {n_pieces} "
+        f"pieces verbatim (path 2: {path2['share']:.3f}; tolerance "
+        f"{MESH_QUALITY_TOL})")
+    if share < path2["share"] - MESH_QUALITY_TOL:
+        raise AssertionError("Mesh(8) scaffold quality below path 2's")
+
+    profile(lambda: Assembler(plan, Mesh(S)).assemble(reads),
+            "Mesh(8) assemble")
+    with Recorder(ops, PATH2_KERNELS, lambda n, a, kw: f"{n}_mesh") as rec:
+        t0 = time.perf_counter()
+        Assembler(plan, Mesh(S)).assemble(reads)
+        torch.cuda.synchronize()
+        log(f"warm Mesh(8) assemble (recording inputs): "
+            f"{time.perf_counter() - t0:.3f} s")
+    rec.check_counts(launches)
+    records = [hold_against_plain(row, call, ops, launches[call[1]], "mesh",
+                                  plain_reps=MESH_PLAIN_REPS)
+               for row, call in rec.calls.items()]
+    del rec
+
+    plain_plan = dataclasses.replace(plan, kernel_backend="torch")
+    ops.reset_launches()
+    p_out, _ = run_clocked(
+        lambda hook: Assembler(plain_plan, Mesh(S)).assemble(reads,
+                                                             hook=hook),
+        StageClock(ops, "mer_walk", assemble_label), "mesh plain",
+        "Mesh(8) assemble, plain")
+    if any(ops.LAUNCHES.values()):
+        raise AssertionError(f"plain run launched kernels: {ops.LAUNCHES}")
+    assert_same_assembly(out, p_out, "Mesh(8) assemble (kernels vs plain)")
+    log("path 6a plain path: identical " + ", ".join(ASSEMBLE_KEYS)
+        + ", stats")
+    del out, p_out
+    log(f"path 6a: {time.perf_counter() - t_path:.1f} s")
+
+    # ---- 6b: assemble_stream from path 3's FASTQ ----
+    t_sub = time.perf_counter()
+    # the reference's per-shard pre-combine size, kmer_capacity / S x 2,
+    # is sized for a shard's share of the k-mer population, not for a
+    # shard's block of a batch: at 32768 reads a batch, 262,144 rows
+    # against ~370k distinct k-mers in a block of 4096 reads, so 140 of
+    # the 160 pre-combines overflow on the card.  The block's
+    # occurrence count bounds what it can hold.
+    derived = dataclasses.replace(path3["plan"], num_shards=S)
+    block = STREAM_BATCH // S * (reads.max_len - derived.k_min + 1)
+    splan = dataclasses.replace(derived, pre_capacity=next_pow2(block))
+    log(f"path 6b plan: path 3's with num_shards={S} and pre_capacity "
+        f"{splan.pre_cap} (a shard's block of a batch: {block} "
+        f"occurrences; the derived {derived.pre_cap} overflows): "
+        f"bloom_slots {splan.bloom_slots} a shard, shard_table_cap "
+        f"{splan.shard_table_cap}, route_cap {splan.route_cap}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    # the rows' inputs are recorded in this run: a second streamed run
+    # would cost as much again
+    with Recorder(ops, PATH3_KERNELS,
+                  lambda n, a, kw: f"{n}_mesh_stream") as rec:
+        st, sclock = run_clocked(
+            lambda hook: Assembler(splan, Mesh(S)).assemble_stream(
+                path3["src"], hook=hook),
+            StageClock(ops, "sw_extend", stream_label), "mesh stream",
+            "Mesh(8) assemble_stream")
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"launches in Mesh(8) assemble_stream: {launches}; peak "
+        f"{peak / 1e9:.2f} GB; wall "
+        f"{sum(t for t, _ in sclock.stages.values()):.3f} s (path 3: "
+        f"{path3['wall']:.3f} s); overflow {st['overflow']}")
+    check_path_kernels(launches, PATH3_KERNELS, "path 6b")
+    want_sw = 3 * path3["n_batches"] * 2 * S
+    if launches["sw_extend"] != want_sw:
+        raise AssertionError(f"sw_extend launched {launches['sw_extend']} "
+                             f"times, expected {want_sw}")
+    rec.check_counts(launches)
+    assert_same(st["alive"], path3["alive"],
+                "alive (Mesh(8) streamed vs path 3)")
+    assert_same(st["scaffold_seqs"], path3["scaffold_seqs"],
+                "scaffold_seqs (Mesh(8) streamed vs path 3)")
+    assert_no_overflow(st, "path 6b")
+    log("path 6b: alive and scaffold_seqs equal to path 3's Local "
+        "streamed run")
+    for s in st["stats"]:
+        sst = st["stream_stats"][s.k]
+        log(f"[mesh stream] round k={s.k}: n_kmers={s.n_kmers}, n_contigs="
+            f"{s.n_contigs}; {sst.occurrences_admitted}/"
+            f"{sst.occurrences_total} occurrences admitted, route overflow "
+            f"{sst.route_overflow}")
+    del st
+    records += [hold_against_plain(row, call, ops, launches[call[1]],
+                                   "mesh_stream",
+                                   plain_reps=MESH_PLAIN_REPS)
+                for row, call in rec.calls.items()]
+    del rec
+    log(f"path 6b: {time.perf_counter() - t_sub:.1f} s")
+
+    # ---- 6c: the profile-HMM scorer on path 2's contigs ----
+    t_sub = time.perf_counter()
+    from repro_torch.core import hmm
+    g0 = comm.genomes[0]
+    rng = np.random.default_rng(HMM_SEED)
+    start = int(rng.integers(0, len(g0) - HMM_WINDOW))
+    window = g0[start:start + HMM_WINDOW]
+    contigs, alive = path2["contigs"], path2["alive"]
+    lens = torch.where(alive, contigs.lengths, 0)
+    prof = hmm.build_profile([window], device=HMM_DEVICE)
+    cb, cl = contigs.bases.to(HMM_DEVICE), lens.to(HMM_DEVICE)
+    hmm.hmm_hits(prof, cb[:1], cl[:1])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hits, scores = hmm.hmm_hits(prof, cb, cl)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    n_hit = int(hits.sum())
+    log(f"path 6c: hmm_hits over {int(alive.sum())} live contigs of path 2 "
+        f"(profile: {HMM_WINDOW} bases of genome 0 at {start}): "
+        f"{t_card:.3f} s on the card (synchronized), L = "
+        f"{int(cl.max())} positions looped, {n_hit} flagged, best score "
+        f"{float(scores.max()):.3f} (threshold {0.25 * HMM_WINDOW})")
+    if n_hit < 1:
+        raise AssertionError("the HMM flagged no contig")
+    rnd = torch.from_numpy(rng.integers(0, 4, (1, 300)).astype(np.uint8))
+    r_hit, r_score = hmm.hmm_hits(prof, rnd.to(HMM_DEVICE), torch.full(
+        (1,), 300, dtype=torch.int32, device=HMM_DEVICE))
+    log(f"path 6c: a seeded random 300-base row scores "
+        f"{float(r_score[0]):.3f}, flagged {bool(r_hit[0])}")
+    if bool(r_hit[0]):
+        raise AssertionError("the HMM flagged a random sequence")
+    t0 = time.perf_counter()
+    c_hits, c_scores = hmm.hmm_hits(hmm.build_profile([window]),
+                                    contigs.bases, lens)
+    t_cpu = time.perf_counter() - t0
+    d = float((scores.cpu() - c_scores).abs().max())
+    log(f"path 6c: the CPU run ({t_cpu:.3f} s): flags equal "
+        f"{torch.equal(hits.cpu(), c_hits)}, max |score difference| {d}")
+    if not torch.equal(hits.cpu(), c_hits) or d > HMM_SCORE_TOL:
+        raise AssertionError("HMM flags or scores differ between the card "
+                             "and the CPU")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out_h = Assembler(path2["plan"], Local()).assemble(reads,
+                                                       hmm_hit=hits)
+    torch.cuda.synchronize()
+    check_path_kernels(dict(ops.LAUNCHES), PATH2_KERNELS, "path 6c")
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(
+        out_h["scaffold_seqs"], path2["scaffold_seqs"]))
+    log(f"path 6c: assemble(hmm_hit=...) on the kernels "
+        f"{time.perf_counter() - t0:.3f} s: "
+        f"{int(out_h['scaffolds'].n_scaffolds)} scaffolds, scaffold_seqs "
+        f"{'equal to' if same else 'differ from'} path 2's")
+    assert_no_overflow(out_h, "path 6c")
+    del out_h
+    log(f"path 6c: {time.perf_counter() - t_sub:.1f} s")
+    log(f"path 6: {time.perf_counter() - t_path:.1f} s")
     return records
 
 
@@ -1849,8 +2102,15 @@ def main(argv=None) -> int:
     records = phase_contig_rounds(api, ops, dbg, reads, comm)
     path2_records, path2 = phase_assemble(api, ops, reads, comm)
     records += path2_records
-    records += phase_stream(api, ops, reads, comm, path2)
-    del path2
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        path3_records, path3 = phase_stream(api, ops, reads, comm, path2,
+                                            tmp)
+        records += path3_records
+        records += phase_mesh(api, ops, reads, comm, path2, path3)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del path2, path3
     small_reads = phase_small(api, mgsim, ExtensionPolicy)
     phase_small_stream(api, small_reads)
     records += phase_lm(ops, card)

@@ -1,8 +1,10 @@
 """`Assembler`: the front door to the pipeline (mirrors
-`repro.api.assembler`; single device).
+`repro.api.assembler`).
 
     plan = AssemblyPlan.from_dataset(reads, (17, 21, 4))
     out = Assembler(plan, Local()).assemble(reads)
+    plan8 = AssemblyPlan.from_dataset(reads, (17, 21, 4), num_shards=8)
+    out = Assembler(plan8, Mesh(8)).assemble(reads)     # 8 shards
     contigs, alive, al, stats = Assembler(plan, Local()).contig_rounds(reads)
     splan = AssemblyPlan.from_stream(32768, 150, unique_kmers=500_000)
     out = Assembler(splan, Local()).assemble_stream(batch_source)
@@ -207,8 +209,8 @@ class Assembler:
         suspended, components, stats, plan, overflow).
 
         `hmm_hit`: optional [contig_cap] bool, contigs whose ends stay
-        extendable under competing links (§III-C); the profile-HMM scorer
-        that computes it is not ported.  `hook(stage, info)` runs at every
+        extendable under competing links (§III-C), as `core.hmm.hmm_hits`
+        flags them.  `hook(stage, info)` runs at every
         stage boundary and may raise to abort there (see `drive`).
         """
         return drive(self.assemble_iter(reads, hmm_hit), hook)

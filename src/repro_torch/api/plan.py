@@ -1,5 +1,5 @@
 """AssemblyPlan: one derived capacity plan for a run (mirrors
-`repro.api.plan`, single-device part).
+`repro.api.plan`).
 
 `AssemblyPlan.from_dataset(reads, k_range, slack=...)` derives every stage
 capacity from the dataset shape the paper's §II-B way: provision from an
@@ -7,15 +7,16 @@ upfront cardinality estimate, report overflow, never grow.
 `AssemblyPlan.from_stream(batch_reads, max_len, ...)` sizes an out-of-core
 plan from the batch shape and the estimated k-mer population instead, so
 its bill does not grow with the read count.  `plan.bytes()` states the
-memory bill before any array is allocated.  The fields are the
+memory bill before any array is allocated, per shard when the plan is
+sized for `num_shards` shards of a `Mesh` context.  The fields are the
 reference's, so a reference plan's `dataclasses.asdict` builds this one
-(`bridge.plan_from_fields`).
+(`bridge.plan_from_fields`).  One difference: `kernel_backend` is None
+(kernels on the card, plain versions on the CPU) or "torch" (plain
+versions everywhere), see `kernels.ops`.
 
-Differences from the reference, all in what the port does not run yet:
-
-  * `kernel_backend` is None (kernels on the card, plain versions on the
-    CPU) or "torch" (plain versions everywhere), see `kernels.ops`;
-  * `num_shards` must be 1: the Mesh context is not ported.
+The bill is the reference's, per shard.  On one card a `Mesh` keeps all
+S shards' owner tables and route buffers resident at once, so its peak
+is not `bytes()`; `chip_smoke.py` prints the two side by side.
 """
 from __future__ import annotations
 
@@ -23,17 +24,13 @@ import dataclasses
 from typing import Optional
 
 from repro_torch.core.kmer_analysis import ExtensionPolicy
+from repro_torch.dist.capacity import default_route_capacity, next_pow2
 
 BACKENDS = (None, "torch")
 
 
 class PlanError(ValueError):
     """A plan parameter is invalid (raised before any work starts)."""
-
-
-def next_pow2(n: int) -> int:
-    """Smallest power of two >= n (>= 1)."""
-    return 1 << (max(int(n), 1) - 1).bit_length()
 
 
 def _ladder(k: int, step: int) -> tuple:
@@ -138,7 +135,13 @@ def validate_assembly_params(
 
 @dataclasses.dataclass(frozen=True)
 class AssemblyPlan:
-    """Per-stage capacity plan + algorithm knobs for one run."""
+    """Per-stage, per-shard capacity plan + algorithm knobs for one run.
+
+    Capacities are global unless suffixed otherwise; the per-shard ones
+    (`pre_capacity`, `shard_table_capacity`, `route_capacity`) matter only
+    on a `Mesh` context and default to values derived from the global
+    plan and `num_shards`.
+    """
 
     # --- k schedule + thresholds (Alg. 1) ---
     k_min: int = 17
@@ -171,17 +174,17 @@ class AssemblyPlan:
     walk_capacity: int = 1 << 16
     link_capacity: int = 1 << 12
     max_scaffold_len: int = 1 << 13
-    # --- distributed execution (Mesh, not ported: num_shards must be 1) ---
+    # --- distributed execution (Mesh) ---
     num_shards: int = 1
     slack: float = 2.0
-    pre_capacity: Optional[int] = None
-    shard_table_capacity: Optional[int] = None
-    route_capacity: Optional[int] = None
+    pre_capacity: Optional[int] = None          # per-shard pre-combine rows
+    shard_table_capacity: Optional[int] = None  # per-shard owner-table rows
+    route_capacity: Optional[int] = None        # per-(sender, dest) rows
     localize_out_factor: int = 2
     # --- streaming execution ---
     # batch_reads: rows per streamed batch (None = in-memory plan);
-    # bloom_bits: Bloom filter slots of the two-pass admission (None =
-    # derive from kmer_capacity).  Both set by `from_stream`.
+    # bloom_bits: per-shard Bloom filter slots of the two-pass admission
+    # (None = derive from kmer_capacity).  Both set by `from_stream`.
     batch_reads: Optional[int] = None
     bloom_bits: Optional[int] = None
     # dataset shape (num_reads, max_len), recorded by `from_dataset` /
@@ -206,15 +209,21 @@ class AssemblyPlan:
                 f"AssemblyPlan: kernel_backend={self.kernel_backend!r} "
                 f"unknown; valid: {BACKENDS}"
             )
-        if self.num_shards != 1:
+        if self.num_shards < 1:
+            raise PlanError(f"AssemblyPlan: num_shards={self.num_shards} < 1")
+        for name in ("seed_capacity", "pre_capacity",
+                     "shard_table_capacity", "route_capacity"):
+            v = getattr(self, name)
+            if v is not None and int(v) <= 0:
+                raise PlanError(
+                    f"AssemblyPlan: {name}={v} must be positive (or None "
+                    f"to derive it) — capacities are static buffer sizes"
+                )
+        if self.localize_out_factor < 1:
             raise PlanError(
-                "AssemblyPlan: only single-device plans are ported "
-                "(num_shards=1); Mesh is a later ROADMAP.md Queue 1 item"
-            )
-        if self.seed_capacity is not None and int(self.seed_capacity) <= 0:
-            raise PlanError(
-                f"AssemblyPlan: seed_capacity={self.seed_capacity} must be "
-                f"positive (or None to derive it)"
+                f"AssemblyPlan: localize_out_factor="
+                f"{self.localize_out_factor} < 1 would drop reads by "
+                f"construction"
             )
         if self.slack <= 0:
             raise PlanError(f"AssemblyPlan: slack={self.slack} must be > 0")
@@ -244,14 +253,37 @@ class AssemblyPlan:
         return self.seed_capacity or 2 * self.kmer_capacity
 
     @property
+    def pre_cap(self) -> int:
+        """Per-shard local pre-combine table rows (Mesh k-mer analysis)."""
+        if self.pre_capacity is not None:
+            return self.pre_capacity
+        return max(1 << 8, next_pow2(-(-self.kmer_capacity
+                                       // self.num_shards)) * 2)
+
+    @property
+    def shard_table_cap(self) -> int:
+        """Per-shard owner-table rows (hash ownership splits ~evenly)."""
+        if self.shard_table_capacity is not None:
+            return self.shard_table_capacity
+        return self.pre_cap
+
+    @property
+    def route_cap(self) -> int:
+        if self.route_capacity is not None:
+            return self.route_capacity
+        return default_route_capacity(self.pre_cap, self.num_shards,
+                                      slack=self.slack)
+
+    @property
     def bloom_slots(self) -> int:
-        """Bloom filter slots of the streamed two-pass admission: 16x the
-        k-mer table by default, so the filter sketches the raw distinct
-        population (true k-mers + error singletons) at a low
-        false-positive rate."""
+        """Per-shard Bloom filter slots of the streamed two-pass
+        admission: 16x the shard's share of the k-mer table by default, so
+        the filter sketches the raw distinct population (true k-mers +
+        error singletons) at a low false-positive rate."""
         if self.bloom_bits is not None:
             return self.bloom_bits
-        return next_pow2(max(1 << 14, 16 * self.kmer_capacity))
+        return next_pow2(max(1 << 14,
+                             16 * self.kmer_capacity // self.num_shards))
 
     @classmethod
     def from_dataset(
@@ -259,6 +291,7 @@ class AssemblyPlan:
         reads,
         k_range: tuple = (17, 21, 4),
         *,
+        num_shards: int = 1,
         slack: float = 2.0,
         unique_rate: float = 0.5,
         **overrides,
@@ -269,6 +302,7 @@ class AssemblyPlan:
           reads: anything with `num_reads` / `max_len`; only the shape is
             read.
           k_range: (k_min, k_max, k_step) iterative-k schedule.
+          num_shards: planned execution width (1 = Local).
           slack: the single headroom dial every capacity scales with.
           unique_rate: expected unique-kmer : occurrence ratio (~1/coverage
             for clean data; ->1 for error-heavy data).
@@ -295,6 +329,7 @@ class AssemblyPlan:
             walk_capacity=walk_capacity,
             link_capacity=link_capacity,
             max_scaffold_len=max_scaffold_len,
+            num_shards=num_shards,
             slack=slack,
             dataset_shape=(R, L),
         )
@@ -310,6 +345,7 @@ class AssemblyPlan:
         *,
         unique_kmers: Optional[int] = None,
         bloom_bits: Optional[int] = None,
+        num_shards: int = 1,
         slack: float = 2.0,
         unique_rate: float = 0.1,
         total_reads: Optional[int] = None,
@@ -327,7 +363,9 @@ class AssemblyPlan:
           unique_kmers: estimate of the distinct true k-mer population
             (community genome content, the paper's §II-B cardinality
             estimate); defaults to `unique_rate` x one batch's occurrences.
-          bloom_bits: Bloom filter slots (default: from the k-mer table).
+          bloom_bits: per-shard Bloom filter slots (default: from the
+            k-mer table).
+          num_shards: planned execution width (1 = Local).
           total_reads: ignored for sizing.
         """
         del total_reads  # sizing must not depend on dataset size
@@ -357,6 +395,7 @@ class AssemblyPlan:
             walk_capacity=walk_capacity,
             link_capacity=link_capacity,
             max_scaffold_len=max_scaffold_len,
+            num_shards=num_shards,
             slack=slack,
             batch_reads=B,
             bloom_bits=bloom_bits,
@@ -366,22 +405,32 @@ class AssemblyPlan:
         return cls(**_clamp_contig_cap(base, overrides))
 
     def stage_bytes(self) -> dict:
-        """Estimated peak static-buffer bytes per stage (the reference's
-        single-shard bill)."""
+        """Estimated peak static-buffer bytes per stage, per shard (the
+        reference's bill): occurrence lanes 11 B a row, count tables 48 B
+        a row, the seed index a dual-lane table + side arrays."""
         R, L = self.dataset_shape or (0, 0)
-        occ_rows = R * (max(L - self.k_min + 1, 1) if L else 0)
+        per_shard_R = -(-R // self.num_shards) if R else 0
+        occ_rows = per_shard_R * (max(L - self.k_min + 1, 1) if L else 0)
         out = {
             "kmer_occurrences": occ_rows * 11,
-            "kmer_tables": self.kmer_capacity * 48 * 3,
+            # pre-combine + owner/merged count tables + finalized KmerSet
+            "kmer_tables": (self.pre_cap if self.num_shards > 1 else
+                            self.kmer_capacity) * 48
+            + self.kmer_capacity * 48 * 2,
             "contigs": self.contig_cap * (self.max_contig_len + 12),
             "seed_index": self.seed_cap * 22,
-            "alignments": R * 2 * 20,
+            "alignments": per_shard_R * 2 * 20,
             "walk_tables": 3 * self.walk_capacity * 48,
             "links": self.link_capacity * 24,
             "scaffolds": self.contig_cap * (
                 self.max_members * 9 + self.max_scaffold_len
             ),
         }
+        if self.num_shards > 1:
+            out["route_buffers"] = (
+                self.num_shards * self.route_cap * 56
+                + self.localize_out_factor * per_shard_R * (L + 8)
+            )
         if self.batch_reads is not None:
             # two persistent Bloom filters (one byte a slot)
             out["bloom_filters"] = 2 * self.bloom_slots
@@ -394,5 +443,5 @@ class AssemblyPlan:
         )
 
     def bytes(self) -> int:
-        """Estimated peak working-set bytes for one run."""
+        """Estimated peak working-set bytes per shard for one run."""
         return int(sum(self.stage_bytes().values()))

@@ -1,5 +1,4 @@
-"""Out-of-core streaming ingest + assembly (mirrors `repro.stream`,
-single device).
+"""Out-of-core streaming ingest + assembly (mirrors `repro.stream`).
 
 Datasets far larger than device memory enter here: a dataset is a *batch
 source* (a re-iterable stream of fixed-shape `ReadSet` batches on the
@@ -21,6 +20,7 @@ from .analysis import (
     StreamCheckpoint,
     StreamStats,
     job_checkpoint_dir,
+    sharded_streaming_kmer_analysis,
     streaming_kmer_analysis,
 )
 from .batches import (
@@ -40,5 +40,6 @@ __all__ = [
     "job_checkpoint_dir",
     "pad_batch",
     "require_reiterable",
+    "sharded_streaming_kmer_analysis",
     "streaming_kmer_analysis",
 ]

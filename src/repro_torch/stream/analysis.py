@@ -1,5 +1,5 @@
 """Two-pass streaming k-mer analysis over batch sources (paper §II-A/B;
-mirrors `repro.stream.analysis`, single device).
+mirrors `repro.stream.analysis`).
 
   pass 1  every batch's canonical occurrences enter Bloom filter f1; a key
           already in f1 (sighted in an earlier batch) or duplicated within
@@ -9,11 +9,16 @@ mirrors `repro.stream.analysis`, single device).
           running table with `merge_counts`.
 
 The device holds one batch plus fixed-capacity filters and tables,
-whatever the read count.  Batch boundaries are checkpoint boundaries:
-`StreamCheckpoint` saves (filters, running table, counters, a
-fingerprint of the data and parameters) after every batch through
-`train.checkpoint.Checkpointer`, so an interrupted analysis resumes at
-the last completed batch.
+whatever the read count.  Over S shards
+(`sharded_streaming_kmer_analysis`), both filters and the running table
+are owner-partitioned: occurrences route to their hash owner
+(`dist.kmer_owner`) before they touch filter or table state, so each
+key's admission and count are globally exact (`dist.stages`).
+
+Batch boundaries are checkpoint boundaries: `StreamCheckpoint` saves
+(filters, running table, counters, a fingerprint of the data and
+parameters) after every batch through `train.checkpoint.Checkpointer`,
+so an interrupted analysis resumes at the last completed batch.
 """
 from __future__ import annotations
 
@@ -229,6 +234,96 @@ def streaming_kmer_analysis(
         fingerprint_params=dict(k=k, capacity=capacity,
                                 bloom_bits=bloom_bits,
                                 num_hashes=num_hashes),
+        state_fn=state_fn, load_fn=load_fn,
+        pass1_step=pass1_step, pass2_step=pass2_step,
+    )
+    return run, stats
+
+
+def sharded_streaming_kmer_analysis(
+    batches,
+    mesh,
+    *,
+    k: int,
+    capacity: int,
+    bloom_bits: int,
+    pre_capacity: int,
+    route_capacity: Optional[int] = None,
+    num_hashes: int = 3,
+    checkpoint_dir: Optional[str] = None,
+    backend=None,
+    device=None,
+):
+    """Owner-partitioned two-pass streamed count table over S shards.
+
+    Filters and the running table are sharded by k-mer hash ownership:
+    each batch pre-combines a shard, routes entries to their owners, and
+    an owner updates its filter shard and folds into its slice of the
+    running table (`dist.stages.sharded_bloom_observe` /
+    `sharded_stream_fold`), so admission and counts are globally exact.
+
+    Args:
+      mesh: the shard count S (or a `Mesh` context).
+      bloom_bits: slots of each per-shard filter ([S, bloom_bits] bits
+        for each of the two filters).
+      capacity: per-shard running-table rows.
+    Returns:
+      (run, stats): the running table with flat [S * capacity] arrays in
+      the owner layout of `sharded_kmer_analysis` (keys hi, lo, count,
+      left_cnt, right_cnt), and a `StreamStats` with the route overflow.
+    """
+    from repro_torch.dist import stages
+    from repro_torch.dist.pipeline import mesh_shards
+
+    S = mesh_shards(mesh)
+    if device is None:
+        require_reiterable(batches)
+        device = next(iter(batches)).bases.device
+    f1_bits = torch.zeros((S, bloom_bits), dtype=torch.bool, device=device)
+    f2_bits = torch.zeros((S, bloom_bits), dtype=torch.bool, device=device)
+    empty = kmer_analysis.empty_count_table(capacity, device=device)
+    # owner layout: rows [s*capacity, (s+1)*capacity) are shard s's slice
+    run = {key: empty[key].repeat((S,) + (1,) * (empty[key].dim() - 1))
+           for key in stages.RUN_KEYS}
+    stats = StreamStats()
+
+    def state_fn(fp):
+        return {"f1_bits": f1_bits, "f2_bits": f2_bits,
+                "counters": _counters(stats),
+                "fp": torch.tensor(fp, dtype=torch.int64),
+                **{f"run_{key}": v for key, v in run.items()}}
+
+    def load_fn(state):
+        nonlocal f1_bits, f2_bits, run
+        f1_bits, f2_bits = state["f1_bits"], state["f2_bits"]
+        run = {key[len("run_"):]: v for key, v in state.items()
+               if key.startswith("run_")}
+
+    def pass1_step(batch):
+        nonlocal f1_bits, f2_bits
+        f1_bits, f2_bits, route_ovf, pre_ovf = stages.sharded_bloom_observe(
+            batch.to(device), S, f1_bits, f2_bits, k=k,
+            pre_capacity=pre_capacity, route_capacity=route_capacity,
+            num_hashes=num_hashes, backend=backend)
+        stats.route_overflow += int(route_ovf)
+        stats.table_overflow += int(pre_ovf)
+
+    def pass2_step(batch):
+        nonlocal run
+        run, counts, route_ovf, table_ovf = stages.sharded_stream_fold(
+            batch.to(device), S, f2_bits, run, k=k, capacity=capacity,
+            pre_capacity=pre_capacity, route_capacity=route_capacity,
+            num_hashes=num_hashes, backend=backend)
+        stats.occurrences_total += int(counts[0])
+        stats.occurrences_admitted += int(counts[1])
+        stats.route_overflow += int(route_ovf)
+        stats.table_overflow += int(table_ovf)
+
+    _run_two_pass(
+        batches, stats=stats, checkpoint_dir=checkpoint_dir,
+        fingerprint_params=dict(k=k, capacity=capacity,
+                                bloom_bits=bloom_bits,
+                                num_hashes=num_hashes, num_shards=S),
         state_fn=state_fn, load_fn=load_fn,
         pass1_step=pass1_step, pass2_step=pass2_step,
     )

@@ -108,6 +108,7 @@ def iter_assemble_stream(plan, ctx, batches, *, hmm_hit=None,
         )
     check_batch_shapes(batches)
     ctx.prepare_stream(plan, checkpoint_dir=checkpoint_dir)
+    plan = ctx.plan  # a Mesh re-derives the per-shard capacities
     backend = plan.kernel_backend
     insert_size = None
     prev = None

@@ -8,7 +8,8 @@ Module tests take the reference run's arrays through `repro_torch.bridge`:
 link aggregation from the reference's candidate witnesses, repeat
 suspension, connected components, greedy matching and chain formation
 from the reference's links, and gap closing from the reference's
-scaffolds.  Tolerance: exact everywhere, float32 link and scaffold gaps
+scaffolds.  A second run of both passes `hmm_hit`, every other live
+contig flagged.  Tolerance: exact everywhere, float32 link and scaffold gaps
 included (each witness gap is an integer and their sums stay below
 2**24, so the float32 sums are exact in any order).
 """
@@ -17,6 +18,7 @@ import dataclasses
 import numpy as np
 import jax.numpy as jnp
 import pytest
+import torch
 
 from repro.api import Assembler as JAssembler, Local as JLocal
 from repro.core import scaffolding as jscaf
@@ -53,6 +55,25 @@ def runs():
                     jreads.insert_size)
     got = Assembler(_plan(), Local(device="cpu")).assemble(reads)
     return jreads, reads, want, got
+
+
+def _hmm_mask(alive):
+    """Every other live contig flagged as an HMM hit (§III-C)."""
+    idx = np.arange(len(alive))
+    return np.asarray(alive) & (idx % 2 == 0)
+
+
+@pytest.fixture(scope="module")
+def hmm_runs(runs):
+    """A second run of both packages with `hmm_hit` flagging live contigs
+    (the reference's reuses the first run's compiled functions)."""
+    jreads, reads, want, _ = runs
+    mask = _hmm_mask(want["alive"])
+    want_h = JAssembler(SMALL_PLAN, JLocal()).assemble(
+        jreads, hmm_hit=jnp.asarray(mask))
+    got_h = Assembler(_plan(), Local(device="cpu")).assemble(
+        reads, hmm_hit=torch.from_numpy(mask))
+    return mask, want_h, got_h
 
 
 def _eq(got, want, what):
@@ -100,6 +121,18 @@ def test_slice_produces_scaffolds(runs):
     seqs = got["scaffold_seqs"]
     assert int(seqs.n_scaffolds) > 0 and int(seqs.lengths.max()) >= 300
     assert int(got["links"].valid.sum()) > 0
+
+
+@pytest.mark.parametrize("key", RESULT_RECORDS + RESULT_ARRAYS)
+def test_assemble_with_hmm_hit_matches(hmm_runs, key):
+    """`assemble(reads, hmm_hit=...)` equals the reference's run with the
+    same mask, bit for bit."""
+    mask, want, got = hmm_runs
+    assert mask.sum() > 0
+    if key in RESULT_RECORDS:
+        _eq_record(got[key], want[key], key)
+    else:
+        _eq(got[key], want[key], key)
 
 
 def _ref_inputs(runs):

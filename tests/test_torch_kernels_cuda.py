@@ -4,7 +4,8 @@ Each hand-written kernel (`repro_torch/kernels/csrc/`) is held to its plain
 PyTorch version (`repro_torch.kernels.ref`, itself held to the JAX
 reference by the other test_torch_* files) at small shapes with the edge
 cases of those files, plus the whole `contig_rounds`, `assemble` and
-`assemble_stream` on the card against the CPU run, and the SMOKE llama's
+`assemble_stream` on the card against the CPU run, under `Local` and
+under `Mesh(2)`, the HMM scorer on the card against the CPU, and the SMOKE llama's
 and SMOKE zamba2's `forward(use_kernel=True)` and greedy `Engine` on the
 card against the CPU run.  Skipped where no CUDA card is visible; on the
 card:
@@ -19,13 +20,14 @@ chunked sums in another order); the SMOKE LMs' logits 1e-4 (cuBLAS
 against CPU matmuls), tokens exact.
 """
 import copy
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.api import Assembler, AssemblyPlan, Local
-from repro_torch.core import dht, kmer, local_assembly
+from repro_torch.api import Assembler, AssemblyPlan, Local, Mesh
+from repro_torch.core import dht, hmm, kmer, local_assembly
 from repro_torch.core.kmer_analysis import ExtensionPolicy
 from repro_torch.core.types import ReadSet
 from repro_torch.data import mgsim
@@ -681,6 +683,93 @@ def test_assemble_stream_on_card_equals_cpu(dev):
         assert torch.equal(getattr(g["scaffold_seqs"], f).cpu(),
                            getattr(w["scaffold_seqs"], f)), f
     assert g["stats"] == w["stats"]
+
+
+ASSEMBLE_KEYS = ("contigs", "alive", "alignments", "links", "suspended",
+                 "components", "scaffolds", "scaffold_seqs")
+
+
+def _same_result(got, want, keys):
+    for key in keys:
+        g, w = got[key], want[key]
+        g = g if isinstance(g, tuple) else (g,)
+        w = w if isinstance(w, tuple) else (w,)
+        _same([x.cpu() for x in g], list(w))
+
+
+def _mesh_fixture():
+    """tests/test_torch_mesh.py's community and Mesh(2) plan."""
+    comm = mgsim.sample_community(5, num_genomes=3, genome_len=300,
+                                  abundance_sigma=0.3)
+    reads, _ = mgsim.generate_reads(6, comm, num_pairs=400, read_len=60,
+                                    err_rate=0.003)
+    plan = AssemblyPlan.from_dataset(reads, (17, 21, 4), num_shards=2,
+                                     unique_rate=0.2, localize_out_factor=8)
+    return reads, plan
+
+
+def test_mesh_contig_rounds_on_card_equals_cpu(dev):
+    reads, plan = _mesh_fixture()
+    plan = dataclasses.replace(plan, run_local_assembly=False)
+    ops.reset_launches()
+    got = Assembler(plan, Mesh(2, device=dev)).contig_rounds(reads)
+    assert all(ops.LAUNCHES[n] > 0 for n in ASSEMBLY_KERNELS
+               if n not in ("mer_walk", "sw_extend")), ops.LAUNCHES
+    assert ops.LAUNCHES["mer_walk"] == ops.LAUNCHES["sw_extend"] == 0
+    want = Assembler(plan, Mesh(2, device="cpu")).contig_rounds(reads)
+    for g, w in zip(got[:3], want[:3]):
+        g = g if isinstance(g, tuple) else (g,)
+        w = w if isinstance(w, tuple) else (w,)
+        _same([x.cpu() for x in g], list(w))
+    assert got[3] == want[3]
+
+
+def test_mesh_assemble_on_card_equals_cpu(dev):
+    reads, plan = _mesh_fixture()
+    ops.reset_launches()
+    ctx = Mesh(2, device=dev)
+    got = Assembler(plan, ctx).assemble(reads)
+    assert all(ops.LAUNCHES[n] > 0 for n in ASSEMBLY_KERNELS
+               if n != "sw_extend"), ops.LAUNCHES
+    assert ops.LAUNCHES["sw_extend"] == 0
+    assert ops.LAUNCHES["flash_attention"] == ops.LAUNCHES["ssd_scan"] == 0
+    want = Assembler(plan, Mesh(2, device="cpu")).assemble(reads)
+    _same_result(got, want, ASSEMBLE_KEYS)
+    assert got["stats"] == want["stats"]
+    assert got["overflow"] == want["overflow"]
+    assert all(v == 0 for v in got["overflow"].values())
+
+
+def test_mesh_gapped_assemble_stream_on_card_equals_cpu(dev):
+    reads, _ = _mesh_fixture()
+    plan = AssemblyPlan.from_stream(256, 60, (17, 21, 4), unique_kmers=1000,
+                                    slack=4.0, gapped_align=True,
+                                    num_shards=2)
+    batches = batches_from_readset(reads, 256)
+    ops.reset_launches()
+    got = Assembler(plan, Mesh(2, device=dev)).assemble_stream(batches)
+    assert all(ops.LAUNCHES[n] > 0 for n in ASSEMBLY_KERNELS), ops.LAUNCHES
+    want = Assembler(plan, Mesh(2, device="cpu")).assemble_stream(batches)
+    _same_result(got, want, ASSEMBLE_KEYS)
+    assert got["stats"] == want["stats"]
+    assert got["stream_stats"] == want["stream_stats"]
+
+
+def test_hmm_hits_on_card_equals_cpu(dev):
+    rng = np.random.default_rng(5)
+    rrna = rng.integers(0, 4, 80).astype(np.uint8)
+    bases = rng.integers(0, 4, (300, 700)).astype(np.uint8)
+    bases[::7, 100:180] = rrna
+    lengths = rng.integers(0, 701, 300).astype(np.int32)
+    lengths[::7] = 700
+    prof = hmm.build_profile([rrna])
+    want = hmm.hmm_hits(prof, torch.from_numpy(bases),
+                        torch.from_numpy(lengths))
+    got = hmm.hmm_hits(hmm.build_profile([rrna], device=dev),
+                       torch.from_numpy(bases).to(dev),
+                       torch.from_numpy(lengths).to(dev))
+    assert torch.equal(got[0].cpu(), want[0]) and bool(want[0].any())
+    assert torch.allclose(got[1].cpu(), want[1], rtol=0, atol=1e-4)
 
 
 # ---------- the LM serving path: flash_attention and the SMOKE llama ----------

@@ -132,7 +132,7 @@ def test_from_stream_bill_ignores_total_reads():
 @pytest.mark.parametrize("args,kw,match", [
     ((101, 60), {}, "batch_reads"),
     ((100, 60), dict(bloom_bits=1000), "bloom_bits"),
-    ((100, 60), dict(num_shards=2), "num_shards"),
+    ((100, 60), dict(num_shards=0), "num_shards"),
 ])
 def test_from_stream_refusals(args, kw, match):
     with pytest.raises(PlanError, match=match):
