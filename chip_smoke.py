@@ -3,12 +3,13 @@
     python3 chip_smoke.py [--num-pairs N] [--num-genomes G]
 
 Drives the port's assembly paths on one virome-like community (under
-`Local`, paths 1-3, and under `Mesh(8)`, path 6): 24
-genomes of 10-30 kbp (4 of them 1%-divergent strains), 150k reads of
-2 x 150 bp at ~45x mean coverage, and its two LM serving paths at full
-width with random fp32 weights: llama3.2-3b (path 4) and the hybrid
-zamba2-7b (path 5).  The community is sized so the first
-round's traversal fits the contig_cap of 4096 that the reference's
+`Local`, paths 1-3, under `Mesh(8)`, path 6, and as jobs of the
+assembly `JobServer`, path 7): 24 genomes of 10-30 kbp (4 of them
+1%-divergent strains), 150k reads of 2 x 150 bp at ~45x mean coverage,
+and its three LM serving paths at full width with random fp32 weights:
+llama3.2-3b (path 4), the hybrid zamba2-7b (path 5) and the MoE
+qwen2-moe-a2.7b (path 8).  The community is sized so the first round's
+traversal fits the contig_cap of 4096 that the reference's
 (contig, mer) tag space allows with the (17, 21, 25) walk ladder: with
 40 genomes (+4 strains) and 240k reads that traversal finds 5893 chains.
 Steps:
@@ -79,7 +80,23 @@ Steps:
   8. small inputs on the card against the same runs on the CPU (all
      paths, `low_memory=True`, and a checkpointed `assemble_stream` whose
      second run resumes every k);
-  9. path 4, the LM serving path: llama3.2-3b (28 layers, d_model 3072,
+  9. path 7, the assembly JobServer (`repro_torch.serving`) on the card,
+     counts reset just before the multiplexed run and read just after:
+     one `JobServer(Local())` takes path 2's in-memory job (priority 2),
+     path 3's streamed FASTQ job (priority 1) and step 8's small
+     `assemble` job, under a budget of path 2's bill plus the small
+     job's, so the streamed job waits while the small one backfills (the
+     admission order is checked); every job must end DONE (a failed job
+     fails the run with its error); all six assembly kernels launched;
+     each result equal to its solo run (path 2's `assemble`, path 3's
+     `assemble_stream` but `StreamStats.resumed`, the small job's card
+     run); each job's `plan.bytes()` bill beside its solo peak, and the
+     multiplexed run's peak beside the bills admitted at once; then step
+     8's streamed job paused after tick 2 and resumed from its
+     checkpoint, and one killed after 4 ticks and recovered by a new
+     server over the same journal, each equal to its solo run; and a
+     `JobServer(Mesh(8))` whose job (path 6a's plan) equals path 6a;
+  10. path 4, the LM serving path: llama3.2-3b (28 layers, d_model 3072,
      3.213 G parameters) built on the card by `init_params` from a seeded
      torch.Generator; `forward(use_kernel=True)` on 2 x 4096 seeded
      tokens, counts reset just before and read just after: flash_attention
@@ -91,7 +108,7 @@ Steps:
      of 16-128 tokens for 160 greedy steps (steps/s, tokens/s), each
      slot's first token's logits against a prefill of the 8 prompts; 32
      decode steps under torch.profiler; stage times and peak memory;
-  10. path 5, the hybrid serving path: zamba2-7b (81 Mamba-2 layers in 13
+  11. path 5, the hybrid serving path: zamba2-7b (81 Mamba-2 layers in 13
      groups of 6 and a tail of 3, d_model 3584, 112 SSM heads of
      P = N = 64, one weight-tied shared attention + GLU block with 32
      heads of 112 after every group; 10,872,216,432 parameters, the
@@ -110,7 +127,26 @@ Steps:
      tokens, the kernel and plain paths in fp32 against the plain path in
      float64 (built from the same layers once the rest of the model is
      freed), the kernel path within 2x the plain path's difference;
-     stage times and peak memory.
+     stage times and peak memory;
+  12. path 8, the MoE serving path (last, once path 5's model is freed):
+     qwen2-moe-a2.7b (24 layers, d_model 2048, 16 heads of 128, 60 routed
+     experts padded to 64 of d_ff 1408, top-4, 4 shared;
+     15,146,256,384 parameters, the reference's init_params leaves, 60.59
+     GB fp32) built on the card from a seeded torch.Generator;
+     `forward(use_kernel=True)` on 2 x 4096 seeded tokens, counts reset
+     just before and read just after: flash_attention once a layer (24)
+     and no other kernel; the (token, expert) pairs each layer's dispatch
+     drops at capacity; the plain path against it (max abs logit
+     difference <= 1e-3, argmax, aux loss), replaying the kernel path's
+     expert picks (`Routing`: a near-tie of the k-th and (k+1)-th router
+     probabilities turns rounding into another expert; the flips are
+     counted and printed); the rows `flash_attention_moe` and `_bf16`
+     (SDPA as library_ms); the Engine serving 8 seeded prompts for 160
+     greedy steps (ms a step against the weight read and the fp32
+     operations of the dense-capacity expert products), each slot's first
+     decode logits against a prefill of its prompt alone replaying the
+     decode's picks (<= 1e-3); 32 profiled decode steps; stage times and
+     peak memory.
 
 Every profiled run also prints each of the eight ops' device time and
 kernel count (the profiler's kernels summed by the library each op
@@ -141,6 +177,7 @@ Without a CUDA card it exits non-zero.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -184,6 +221,7 @@ PATH2_KERNELS = PATH1_KERNELS + ("mer_walk",)
 PATH3_KERNELS = PATH2_KERNELS + ("sw_extend",)
 PATH4_KERNELS = ("flash_attention",)
 PATH5_KERNELS = ("ssd_scan", "flash_attention")
+PATH8_KERNELS = ("flash_attention",)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 SCALAR_OPS_PER_S = 67e12    # H100 SXM 32-bit rate outside the tensor cores
 TENSOR_BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
@@ -233,6 +271,15 @@ MESH_QUALITY_TOL = 0.02
 HMM_SEED, HMM_WINDOW = 23, 200
 HMM_DEVICE = "cuda"
 HMM_SCORE_TOL = 1e-4
+# path 8, the MoE family
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_SEED = 19
+# the leaves of the reference's init_params at full width (its analytic
+# param_count() says 14,312,538,112: it leaves out the 4 padded experts,
+# the routers and the norms)
+MOE_PARAMS = 15_146_256_384
+# fp32 logits of two fp32 paths through 24 layers, the same expert picks
+MOE_LOGIT_TOL = 1e-3
 
 
 def log(*a):
@@ -1185,10 +1232,11 @@ def phase_stream(api, ops, reads, comm, path2, tmp):
     assert_same_stream(out, p_out, "assemble_stream (kernels vs plain)")
     log("plain path: identical " + ", ".join(ASSEMBLE_KEYS)
         + ", stats, stream_stats")
-    path3 = dict(plan=plan, src=src, n_batches=n_batches,
+    path3 = dict(plan=plan, src=src, n_batches=n_batches, peak=peak,
                  wall=sum(t for t, _ in clock.stages.values()),
                  alive=out["alive"].cpu(),
-                 scaffold_seqs=type(seqs)(*(x.cpu() for x in seqs)))
+                 scaffold_seqs=type(seqs)(*(x.cpu() for x in seqs)),
+                 stats=out["stats"], stream_stats=out["stream_stats"])
     del out, p_out
 
     # ---- streamed = in-memory: path 2's plan over the same reads ----
@@ -1223,7 +1271,8 @@ def phase_mesh(api, ops, reads, comm, path2, path3):
     with path 2's plan, 6b `assemble_stream` from path 3's FASTQ with
     path 3's plan, 6c the profile-HMM scorer over path 2's contigs and an
     `assemble` with its flags.  Returns the JSON records of its kernel
-    rows (`<kernel>_mesh`, `<kernel>_mesh_stream`)."""
+    rows (`<kernel>_mesh`, `<kernel>_mesh_stream`) and what path 7's Mesh
+    server compares with."""
     Assembler, AssemblyPlan, Local = api
     from repro_torch.api import Mesh
     from repro_torch.dist.capacity import next_pow2
@@ -1306,6 +1355,10 @@ def phase_mesh(api, ops, reads, comm, path2, path3):
     assert_same_assembly(out, p_out, "Mesh(8) assemble (kernels vs plain)")
     log("path 6a plain path: identical " + ", ".join(ASSEMBLE_KEYS)
         + ", stats")
+    path6a = dict(plan=plan, peak=peak, stats=out["stats"],
+                  alive=out["alive"].cpu(),
+                  scaffold_seqs=type(out["scaffold_seqs"])(
+                      *(x.cpu() for x in out["scaffold_seqs"])))
     del out, p_out
     log(f"path 6a: {time.perf_counter() - t_path:.1f} s")
 
@@ -1428,11 +1481,13 @@ def phase_mesh(api, ops, reads, comm, path2, path3):
     del out_h
     log(f"path 6c: {time.perf_counter() - t_sub:.1f} s")
     log(f"path 6: {time.perf_counter() - t_path:.1f} s")
-    return records
+    return records, path6a
 
 
 def phase_small(api, mgsim, ExtensionPolicy):
-    """Small inputs: both paths on the card equal the CPU runs."""
+    """Small inputs: both paths on the card equal the CPU runs.  Returns
+    the assemble input's reads, plan and card result (path 7's small
+    job)."""
     Assembler, AssemblyPlan, Local = api
     small_plan = AssemblyPlan(
         k_min=17, k_max=21, k_step=4, kmer_capacity=1 << 14, contig_cap=256,
@@ -1460,14 +1515,15 @@ def phase_small(api, mgsim, ExtensionPolicy):
     if not int(c["scaffold_seqs"].n_scaffolds):
         raise AssertionError("small input assemble made no scaffold")
     log("small input, assemble: card run equals the CPU run")
-    return a_reads
+    return dict(reads=a_reads, plan=small_plan, result=g)
 
 
 def phase_small_stream(api, reads):
     """Small inputs of path 3 on the card against the CPU: gapped
     `assemble_stream`, `assemble` with low_memory=True, and checkpoint
     resume (a second run over the same checkpoint_dir resumes every k and
-    returns the same result)."""
+    returns the same result).  Returns the streamed source, plan and card
+    result (path 7's paused and killed jobs)."""
     Assembler, AssemblyPlan, Local = api
     from repro_torch.stream import batches_from_readset
 
@@ -1504,6 +1560,204 @@ def phase_small_stream(api, reads):
     assert_same_assembly(b, a, "resumed run vs checkpointed run")
     log("small input, checkpoint: the second run resumed every k and "
         "returned the same result")
+    return dict(batches=batches, plan=plan, result=g)
+
+
+def same_run(got, want, keys, what):
+    """The keys of a job's result against a solo run's (on the host or
+    the card), and the round stats."""
+    for key in keys:
+        assert_same(got[key], want[key], f"{what}: {key}")
+    if got["stats"] != want["stats"]:
+        raise AssertionError(f"{what}: stats differ")
+
+
+def same_stream_stats(got, want, what):
+    """StreamStats equal but for `resumed` (checkpoint bookkeeping)."""
+    norm = lambda ss: {k: dataclasses.replace(v, resumed=False)
+                       for k, v in ss.items()}
+    if norm(got) != norm(want):
+        raise AssertionError(f"{what}: stream_stats differ")
+
+
+def finished(srv, what):
+    """Every job of the server DONE: a job that failed (a kernel that did
+    not build or launch, a wrong shape) fails the run with its error."""
+    from repro_torch.serving import JobState
+    bad = {j.name: (j.state.value, j.error) for j in srv.jobs.values()
+           if j.state != JobState.DONE}
+    if bad:
+        raise AssertionError(f"{what}: jobs not DONE: {bad}")
+
+
+def phase_serving(api, ops, reads, path2, path3, path6a, small, small_stream,
+                  tmp):
+    """Path 7: the assembly JobServer on the card.  One `JobServer(Local())`
+    multiplexes path 2's in-memory job (high priority), path 3's streamed
+    FASTQ job and the small input's job, with a budget that holds path 2's
+    bill and the small job's but not path 3's beside them, so the small
+    job backfills past the blocked streamed job; each result equals its
+    solo run, each bill stands beside its measured peak.  Then a small
+    streamed job paused and resumed, and one killed mid-run and recovered
+    by a new server over the same journal, each equal to its solo run;
+    and a `JobServer(Mesh(8))` whose job equals path 6a."""
+    Assembler, AssemblyPlan, Local = api
+    from repro_torch.api import Mesh
+    from repro_torch.serving import JobServer, JobSpec, JobState, price
+
+    t_path = time.perf_counter()
+    # ---- the small job's solo peak (paths 2 and 3 measured theirs) ----
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    Assembler(small["plan"], Local()).assemble(small["reads"])
+    torch.cuda.synchronize()
+    peaks = {"path2": path2["peak"], "path3": path3["peak"],
+             "small": torch.cuda.max_memory_allocated()}
+
+    specs = [JobSpec("path2", reads=reads, plan=path2["plan"], priority=2),
+             JobSpec("path3", batches=path3["src"], plan=path3["plan"],
+                     priority=1),
+             JobSpec("small", reads=small["reads"], plan=small["plan"])]
+    bills = {sp.name: price(sp).bytes() for sp in specs}
+    budget = bills["path2"] + bills["small"]
+    if not bills["small"] < bills["path3"] <= budget:
+        raise AssertionError(f"bills {bills}: the streamed job must fit the "
+                             f"budget alone but not beside path 2's job, "
+                             f"where the small job fits")
+    jdir = os.path.join(tmp, "journal")
+    srv = JobServer(Local(), budget_bytes=budget, journal_dir=jdir)
+    for sp in specs:
+        srv.submit(sp)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    srv.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    finished(srv, "path 7")
+    check_path_kernels(launches, PATH3_KERNELS, "path 7")
+    with open(os.path.join(jdir, "journal.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    admitted = [r for r in recs if r["event"] == "admitted"]
+    order = [r["name"] for r in admitted]
+    most = max(budget - r["free"] for r in admitted)
+    log(f"path 7 server: budget {budget / 1e9:.3f} GB (path 2's bill + the "
+        f"small job's); admission order {order}; {len(recs)} journal "
+        f"records; {wall:.3f} s for the three jobs (solo: path 2 "
+        f"{path2['wall']:.3f} s, path 3 {path3['wall']:.3f} s); launches "
+        f"{launches}")
+    if order != ["path2", "small", "path3"]:
+        raise AssertionError(f"admission order {order}: the small job did "
+                             f"not backfill past the blocked streamed job")
+    for name, job in srv.jobs.items():
+        log(f"  job {name}: {job.events} events; bill (plan.bytes()) "
+            f"{bills[name] / 1e9:.3f} GB, solo peak "
+            f"{peaks[name] / 1e9:.3f} GB ({peaks[name] / bills[name]:.1f}x "
+            f"the bill)")
+    log(f"  multiplexed run: peak {peak / 1e9:.3f} GB against "
+        f"{most / 1e9:.3f} GB billed at once (the admitted jobs' bills "
+        f"summed) ({peak / most:.1f}x)")
+    same_run(srv.result("path2"), path2, ("alive", "contigs",
+                                          "scaffold_seqs"),
+             "path 7 path2 job vs path 2's assemble")
+    out3 = srv.result("path3")
+    same_run(out3, path3, ("alive", "scaffold_seqs"),
+             "path 7 path3 job vs path 3's assemble_stream")
+    same_stream_stats(out3["stream_stats"], path3["stream_stats"],
+                      "path 7 path3 job")
+    assert_same_assembly(srv.result("small"), small["result"],
+                         "path 7 small job vs its solo run")
+    log("path 7 server: every job DONE; path2 equals path 2's assemble "
+        "(alive, contigs, scaffold_seqs, stats), path3 path 3's "
+        "assemble_stream (alive, scaffold_seqs, stats, stream_stats but "
+        "resumed), small its solo run")
+    del srv, out3
+
+    # ---- pause and resume, kill and recover: a small streamed job ----
+    sst = small_stream
+    sbudget = 4 * price(JobSpec("s", batches=sst["batches"],
+                                plan=sst["plan"])).bytes()
+    srv = JobServer(Local(), budget_bytes=sbudget,
+                    checkpoint_root=os.path.join(tmp, "ckpt_pause"))
+    job = srv.submit(JobSpec("pause", batches=sst["batches"],
+                             plan=sst["plan"]))
+    ticks, paused = 0, False
+    while srv.step():
+        ticks += 1
+        if ticks == 2:
+            srv.pause("pause")
+        if job.state == JobState.PAUSED:
+            paused = True
+            if srv.scheduler.reserved:
+                raise AssertionError("a paused job holds its budget")
+            srv.resume("pause")
+    finished(srv, "path 7 pause")
+    out = srv.result("pause")
+    if not (paused and job.resumed and any(
+            st.resumed for st in out["stream_stats"].values())):
+        raise AssertionError("the paused job did not resume from its "
+                             "checkpoint")
+    assert_same_assembly(out, sst["result"], "paused and resumed job")
+    same_stream_stats(out["stream_stats"], sst["result"]["stream_stats"],
+                      "paused and resumed job")
+    log(f"path 7 pause: paused after tick 2, resumed from its checkpoint, "
+        f"{job.events} events; equal to its solo run")
+
+    jdir, cdir = os.path.join(tmp, "journal_kill"), \
+        os.path.join(tmp, "ckpt_kill")
+    spec = lambda: JobSpec("crashy", batches=sst["batches"],
+                           plan=sst["plan"])
+    srv = JobServer(Local(), budget_bytes=sbudget, journal_dir=jdir,
+                    checkpoint_root=cdir)
+    job = srv.submit(spec())
+    for _ in range(4):  # the server dies mid-run
+        srv.step()
+    if job.state != JobState.RUNNING:
+        raise AssertionError(f"the job is {job.state.value} after 4 ticks")
+    del srv, job
+    gc.collect()
+    srv = JobServer(Local(), budget_bytes=sbudget, journal_dir=jdir,
+                    checkpoint_root=cdir)
+    srv.recover([spec()])
+    job = srv.jobs["crashy"]
+    if not (job.state == JobState.QUEUED and job.resumed):
+        raise AssertionError("recover did not re-queue the killed job")
+    srv.run()
+    finished(srv, "path 7 recover")
+    out = srv.result("crashy")
+    if not any(st.resumed for st in out["stream_stats"].values()):
+        raise AssertionError("the recovered job did not fast-forward from "
+                             "its checkpoint")
+    assert_same_assembly(out, sst["result"], "killed and recovered job")
+    same_stream_stats(out["stream_stats"], sst["result"]["stream_stats"],
+                      "killed and recovered job")
+    log(f"path 7 recover: killed after 4 ticks, recovered by a new server "
+        f"over the same journal ({srv.journal_replay()}), equal to its "
+        f"solo run")
+    del srv, out
+
+    # ---- a Mesh(8) server: path 6a's job ----
+    mplan = path6a["plan"]
+    srv = JobServer(Mesh(MESH_SHARDS), budget_bytes=mplan.bytes())
+    srv.submit(JobSpec("mesh", reads=reads, plan=mplan))
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    srv.run()
+    torch.cuda.synchronize()
+    finished(srv, "path 7 Mesh(8)")
+    check_path_kernels(dict(ops.LAUNCHES), PATH2_KERNELS, "path 7 Mesh(8)")
+    same_run(srv.result("mesh"), path6a, ("alive", "scaffold_seqs"),
+             "path 7 Mesh(8) job vs path 6a")
+    log(f"path 7 Mesh(8) server: {time.perf_counter() - t0:.3f} s, bill "
+        f"{mplan.bytes() / 1e9:.3f} GB a shard against path 6a's peak "
+        f"{path6a['peak'] / 1e9:.3f} GB; equal to path 6a (alive, "
+        f"scaffold_seqs, stats)")
+    del srv
+    log(f"path 7: {time.perf_counter() - t_path:.1f} s")
 
 
 def flash_row(row, ops, q, k, v, launches, card, path="lm_prefill"):
@@ -1630,7 +1884,8 @@ def top2_gap(logits):
 def compare_logits(got, want, tol, what):
     """Max abs difference within tol, and the argmax equal at every
     position whose top-2 gap exceeds twice the difference."""
-    diff = float((got - want).abs().max())
+    # a row at a time: a [B, S, V] difference would be another logits
+    diff = max(float((g - w).abs_().max()) for g, w in zip(got, want))
     same = got.argmax(-1) == want.argmax(-1)
     clear = top2_gap(want) > 2 * diff
     log(f"{what}: max abs logit difference {diff:.3g} (bound {tol}; logits "
@@ -1644,7 +1899,7 @@ def compare_logits(got, want, tol, what):
 
 
 def serve_and_check(cfg, model, ops, card, stages, weights, seed, path,
-                    tol):
+                    tol, routing=None):
     """The decode Engine serves SERVE_SLOTS seeded prompts of PROMPT_LENS
     tokens for SERVE_NEW_TOKENS greedy steps (steps/s, tokens/s, ms a step
     against the weight-read floor), launching no kernel; then a prefill of
@@ -1681,7 +1936,8 @@ def serve_and_check(cfg, model, ops, card, stages, weights, seed, path,
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
-    outs = eng.run(max_new_tokens=SERVE_NEW_TOKENS)
+    with routing.record() if routing else contextlib.nullcontext():
+        outs = eng.run(max_new_tokens=SERVE_NEW_TOKENS)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     stages["serve (Engine.run)"] = serve_s
@@ -1703,19 +1959,23 @@ def serve_and_check(cfg, model, ops, card, stages, weights, seed, path,
         raise AssertionError("the engine did not serve every request")
 
     # ---- prefill of the same prompts against the decode steps ----
-    L = max(lens)
-    padded = torch.zeros((SERVE_SLOTS, L), dtype=torch.int32,
-                         device=LM_DEVICE)
-    for s, p in enumerate(prompts):
-        padded[s, :len(p)] = torch.tensor(p, dtype=torch.int32)
     t0 = time.perf_counter()
-    pl, _ = transformer.forward(cfg, model, {"tokens": padded},
-                                use_kernel=True)
+    if routing is None:
+        L = max(lens)
+        padded = torch.zeros((SERVE_SLOTS, L), dtype=torch.int32,
+                             device=LM_DEVICE)
+        for s, p in enumerate(prompts):
+            padded[s, :len(p)] = torch.tensor(p, dtype=torch.int32)
+        pl, _ = transformer.forward(cfg, model, {"tokens": padded},
+                                    use_kernel=True)
+        at = torch.tensor([len(p) - 1 for p in prompts], device=LM_DEVICE)
+        pre = pl[torch.arange(SERVE_SLOTS, device=LM_DEVICE), at]
+    else:
+        pl, pre = None, prefill_replaying_decode(cfg, model, prompts, routing,
+                                                 n_steps)
     torch.cuda.synchronize()
     stages["prefill of the 8 prompts (kernel path)"] = \
         time.perf_counter() - t0
-    at = torch.tensor([len(p) - 1 for p in prompts], device=LM_DEVICE)
-    pre = pl[torch.arange(SERVE_SLOTS, device=LM_DEVICE), at]
     dec = torch.stack([first[s] for s in range(SERVE_SLOTS)])
     d = float((pre - dec).abs().max())
     tok0 = torch.tensor([o[0] for o in outs], device=LM_DEVICE)
@@ -1736,6 +1996,91 @@ def serve_and_check(cfg, model, ops, card, stages, weights, seed, path,
     for p in prompts:
         eng.submit(p[:4])
     profile(lambda: eng.run(max_new_tokens=32), "32 decode steps")
+
+
+class Routing:
+    """The experts `ffn.top_k` picks, call by call (`record`, which also
+    keeps each call's pairs dropped at capacity, `_bucket`'s overflow),
+    and a replay of them (`replay`).  An MoE's top-k is discontinuous: two
+    paths that differ by rounding (flash against plain attention, decode
+    against prefill) pick another expert for a token whose k-th and
+    (k+1)-th probabilities nearly tie, and then differ there by far more
+    than the rounding.  So the path compared replays the picks of the
+    path it is compared with, and `flips` counts the token-layers where
+    its own picks would have been another set of experts."""
+
+    def __init__(self):
+        from repro_torch.models import ffn
+        self.ffn = ffn
+        self.top_k, self.bucket = ffn.top_k, ffn._bucket
+        self.calls, self.drops, self.flips = [], [], 0
+
+    @contextlib.contextmanager
+    def _patched(self, top_k, bucket):
+        self.ffn.top_k, self.ffn._bucket = top_k, bucket
+        try:
+            yield self
+        finally:
+            self.ffn.top_k, self.ffn._bucket = self.top_k, self.bucket
+
+    def record(self):
+        self.calls, self.drops = [], []
+
+        def top_k(probs, k):
+            vals, idx = self.top_k(probs, k)
+            self.calls.append(idx)
+            return vals, idx
+
+        def bucket(*args):
+            out = self.bucket(*args)
+            self.drops.append(out[3])
+            return out
+        return self._patched(top_k, bucket)
+
+    @contextlib.contextmanager
+    def replay(self, calls):
+        picks = iter(calls)
+
+        def top_k(probs, k):
+            idx = next(picks)
+            own = self.top_k(probs, k)[1]
+            self.flips += int((own.sort(-1).values != idx.sort(-1).values)
+                              .any(-1).sum())
+            return probs.gather(-1, idx), idx
+        with self._patched(top_k, self.bucket):
+            yield self
+        if next(picks, None) is not None:
+            raise AssertionError("the replay used fewer top-k calls than "
+                                 "the recorded run made")
+
+
+def prefill_replaying_decode(cfg, model, prompts, routing, n_steps):
+    """Each slot's prompt alone through the kernel path's prefill, its
+    experts the decode's picks at the same positions (decode step t fed
+    position t of every slot, one top-k call a layer); returns the last
+    position's logits of each slot.  Alone, a prompt of at most 128 tokens
+    sends an expert at most 128 pairs, which the capacity floor of 128
+    holds, so no pair is dropped, as in decode."""
+    from repro_torch.models import transformer
+
+    L = cfg.n_layers
+    if len(routing.calls) != n_steps * L:
+        raise AssertionError(f"{len(routing.calls)} top-k calls in "
+                             f"{n_steps} decode steps of {L} layers")
+    rows = []
+    for s, p in enumerate(prompts):
+        picks = [torch.stack([routing.calls[t * L + layer][s]
+                              for t in range(len(p))])
+                 for layer in range(L)]
+        tok = torch.tensor([p], dtype=torch.int32, device=LM_DEVICE)
+        with routing.replay(picks):
+            logits, _ = transformer.forward(cfg, model, {"tokens": tok},
+                                            use_kernel=True)
+        rows.append(logits[0, -1])
+    log(f"prefill of each prompt alone, replaying the decode's expert "
+        f"picks: its own would differ at {routing.flips} of "
+        f"{sum(map(len, prompts)) * L} token-layers")
+    return torch.stack(rows)
 
 
 def phase_lm(ops, card):
@@ -2043,6 +2388,150 @@ def phase_hybrid(ops, card):
     return records
 
 
+def phase_moe(ops, card):
+    """Path 8: qwen2-moe-a2.7b at full width, random fp32 weights; the
+    prefill forward through the flash kernel (D = 128) against the plain
+    path, the MoE dispatch's drops at capacity a layer, the kernel rows,
+    and the decode Engine serving 8 requests, cross-checked against a
+    prefill of each prompt.  The compared paths replay the expert picks of
+    the path they are compared with (`Routing`).  Returns the JSON records
+    of the kernel's two rows."""
+    from repro_torch.models import ffn, registry, transformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    cfg = registry.get(MOE_ARCH)
+    E, L = cfg.n_experts + cfg.expert_pad, cfg.n_layers
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held0 = torch.cuda.memory_allocated()
+    stages = {}
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=LM_DEVICE)
+    gen.manual_seed(MOE_SEED)
+    model = transformer.init_params(cfg, gen, device=LM_DEVICE)
+    torch.cuda.synchronize()
+    stages["init_params"] = time.perf_counter() - t0
+    n = sum(p.numel() for p in model.parameters())
+    weights = torch.cuda.memory_allocated() - held0
+    experts = L * E * 3 * cfg.d_model * cfg.moe_d_ff
+    log(f"path 8 model: {cfg.name}, {L} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads of {cfg.hd}; "
+        f"{cfg.n_experts} routed experts (+{cfg.expert_pad} padded: E = {E})"
+        f" of d_ff {cfg.moe_d_ff}, top-{cfg.top_k}, {cfg.n_shared_experts} "
+        f"shared; vocab {cfg.vocab}, untied; {n} parameters (the "
+        f"reference's init_params leaves: {MOE_PARAMS}; its param_count(): "
+        f"{int(cfg.param_count())}), {experts} of them in the expert "
+        f"stacks; {weights / 1e9:.2f} GB fp32 on the card, random from "
+        f"torch.Generator seed {MOE_SEED}, built in "
+        f"{stages['init_params']:.2f} s")
+    if n != MOE_PARAMS or next(model.parameters()).device.type != \
+            LM_DEVICE:
+        raise AssertionError("the model is not qwen2-moe-a2.7b at full "
+                             "width on the card")
+
+    # ---- prefill: the kernel path (clean), then the plain path ----
+    B, S = PREFILL_B, PREFILL_S
+    T = B * S
+    C = ffn.capacity(T, cfg)
+    log(f"CUT: prefill of B={B} x S={S} tokens instead of prefill_32k's 32 "
+        f"x 32768: in fp32 that shape would take most of the run's time "
+        f"limit; capacity C = {C} rows an expert for {T * cfg.top_k} "
+        f"(token, expert) pairs")
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                           device=LM_DEVICE, dtype=torch.int32)
+    routing = Routing()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with routing.record():
+        logits, aux = transformer.forward(cfg, model, {"tokens": tokens},
+                                          use_kernel=True)
+    torch.cuda.synchronize()
+    stages["prefill (kernel path)"] = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    log(f"launches in the prefill forward: {launches}")
+    check_path_kernels(launches, PATH8_KERNELS, "path 8")
+    if launches["flash_attention"] != L:
+        raise AssertionError(f"flash_attention launched "
+                             f"{launches['flash_attention']} times, expected "
+                             f"one a layer ({L})")
+    if logits.shape != (B, S, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()) or not 0 < float(aux) < 1e3:
+        raise AssertionError("prefill logits have the wrong shape or are "
+                             "not finite, or the aux loss is off")
+    drops = [int(d) for d in routing.drops]
+    log(f"(token, expert) pairs dropped at capacity (C = {C}, _bucket's "
+        f"overflow) in layers 0-{L - 1}: {drops}, {sum(drops)} of "
+        f"{L * T * cfg.top_k} in all; aux loss {float(aux):.6f}")
+    if len(drops) != L:
+        raise AssertionError("the dispatch did not run once a layer")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with routing.replay(routing.calls):
+        plain, p_aux = transformer.forward(cfg, model, {"tokens": tokens})
+    torch.cuda.synchronize()
+    stages["prefill (plain path)"] = time.perf_counter() - t0
+    if any(ops.LAUNCHES.values()):
+        raise AssertionError(f"plain path launched kernels: {ops.LAUNCHES}")
+    log(f"the plain path replays the kernel path's expert picks; its own "
+        f"would differ at {routing.flips} of {T * L} token-layers")
+    compare_logits(logits, plain, MOE_LOGIT_TOL,
+                   "prefill, kernel path against plain path")
+    d_aux = abs(float(aux) - float(p_aux))
+    log(f"aux loss, kernel path against plain path: {d_aux:.3g} (bound "
+        f"{MOE_LOGIT_TOL})")
+    if d_aux > MOE_LOGIT_TOL:
+        raise AssertionError("the aux losses of the two paths disagree")
+    del logits, plain
+
+    # ---- where the time goes, and the path's call of the kernel ----
+    calls = []
+    orig = ops.flash_attention
+
+    def record(q, k, v, **kw):
+        calls[:] = [(q, k, v)]
+        return orig(q, k, v, **kw)
+
+    ops.flash_attention = record
+    try:
+        profile(lambda: transformer.forward(cfg, model, {"tokens": tokens},
+                                            use_kernel=True),
+                "prefill forward, kernel path")
+    finally:
+        ops.flash_attention = orig
+    q, k, v = calls[-1]  # the last layer's call
+    records = [flash_row("flash_attention_moe", ops, q, k, v,
+                         launches["flash_attention"], card, "moe_prefill")]
+    records.append(flash_row("flash_attention_moe_bf16", ops, q.bfloat16(),
+                             k.bfloat16(), v.bfloat16(),
+                             launches["flash_attention"], card,
+                             "moe_prefill"))
+    del calls, q, k, v, tokens
+
+    # ---- serving: every expert runs C = 128 rows a step ----
+    dense = n - experts
+    flops = 2 * (ffn.capacity(SERVE_SLOTS, cfg) * experts
+                 + SERVE_SLOTS * dense)
+    log(f"decode at {SERVE_SLOTS} slots: each expert product runs C = "
+        f"{ffn.capacity(SERVE_SLOTS, cfg)} rows, so a step reads all "
+        f"{weights / 1e9:.2f} GB ({weights / HBM_BYTES_PER_S * 1e3:.3f} ms "
+        f"at 3.35 TB/s) and does {flops / 1e12:.3f} TFLOP of fp32 products "
+        f"({flops / SCALAR_OPS_PER_S * 1e3:.3f} ms at 67 TFLOP/s)")
+    serve_and_check(cfg, model, ops, card, stages, weights, MOE_SEED,
+                    "path 8", MOE_LOGIT_TOL, routing=Routing())
+    peak = torch.cuda.max_memory_allocated()
+    for name, t in stages.items():
+        log(f"[path 8] stage {name}: {t:.3f} s")
+    log(f"peak device memory (path 8): {peak / 1e9:.2f} GB; {card}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return records
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--num-pairs", type=int, default=DEFAULT_PAIRS,
@@ -2107,14 +2596,21 @@ def main(argv=None) -> int:
         path3_records, path3 = phase_stream(api, ops, reads, comm, path2,
                                             tmp)
         records += path3_records
-        records += phase_mesh(api, ops, reads, comm, path2, path3)
+        mesh_records, path6a = phase_mesh(api, ops, reads, comm, path2,
+                                          path3)
+        records += mesh_records
+        small = phase_small(api, mgsim, ExtensionPolicy)
+        small_stream = phase_small_stream(api, small["reads"])
+        phase_serving(api, ops, reads, path2, path3, path6a, small,
+                      small_stream, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    del path2, path3
-    small_reads = phase_small(api, mgsim, ExtensionPolicy)
-    phase_small_stream(api, small_reads)
+    del path2, path3, path6a, small, small_stream
+    gc.collect()
+    torch.cuda.empty_cache()
     records += phase_lm(ops, card)
     records += phase_hybrid(ops, card)
+    records += phase_moe(ops, card)
 
     log(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -14,10 +14,11 @@ the same bits (`core.types`) and come back as uint32 arrays.
 
 The LM's weights cross the same way: `lm_from_numpy(cfg, params)` builds
 the port's model from the reference's `init_params` pytree as numpy
-arrays (dense: every layer parameter stacked on a leading `layers` axis;
-hybrid: `mamba` leaves stacked [groups, attn_every, ...], `mamba_tail`
-[rest, ...] and one `shared` block), and `lm_to_numpy(model)` gives that
-pytree back.
+arrays (dense and MoE: every layer parameter stacked on a leading
+`layers` axis, an MoE layer's `moe` holding `router`, the expert stacks
+`wi` / `wg` / `wo` and its `shared` GLU; hybrid: `mamba` leaves stacked
+[groups, attn_every, ...], `mamba_tail` [rest, ...] and one `shared`
+block), and `lm_to_numpy(model)` gives that pytree back.
 """
 from __future__ import annotations
 
@@ -96,6 +97,7 @@ def plan_from_fields(fields: dict) -> AssemblyPlan:
 
 _ATTN = ("wq", "wk", "wv", "wo")
 _GLU = ("wi", "wg", "wo")
+_MOE = ("router", "wi", "wg", "wo")
 
 
 def _index(tree, idx):
@@ -112,10 +114,19 @@ def _stack(trees):
     return np.stack(trees)
 
 
+def _glu(p, t) -> ffn.GLU:
+    return ffn.GLU(*(t(p[n]) for n in _GLU))
+
+
 def _dense_layer(p, t) -> transformer.DenseLayer:
     attn = attention.Attention(*(t(p["attn"][n]) for n in _ATTN))
-    mlp = ffn.GLU(*(t(p["mlp"][n]) for n in _GLU)) if "mlp" in p else None
-    return transformer.DenseLayer(attn, t(p["ln1"]), t(p["ln2"]), mlp)
+    mlp = _glu(p["mlp"], t) if "mlp" in p else None
+    moe = None
+    if "moe" in p:
+        m = p["moe"]
+        moe = ffn.MoE(*(t(m[n]) for n in _MOE),
+                      _glu(m["shared"], t) if "shared" in m else None)
+    return transformer.DenseLayer(attn, t(p["ln1"]), t(p["ln2"]), mlp, moe)
 
 
 def _mamba_layer(p, t) -> transformer.MambaLayer:
@@ -128,11 +139,19 @@ def _numpy(p):
     return p.detach().cpu().numpy()
 
 
+def _tree(module, names) -> dict:
+    return {n: _numpy(getattr(module, n)) for n in names}
+
+
 def _dense_tree(lp: transformer.DenseLayer) -> dict:
-    out = {"attn": {n: _numpy(getattr(lp.attn, n)) for n in _ATTN},
+    out = {"attn": _tree(lp.attn, _ATTN),
            "ln1": _numpy(lp.ln1), "ln2": _numpy(lp.ln2)}
+    if lp.moe is not None:
+        out["moe"] = _tree(lp.moe, _MOE)
+        if lp.moe.shared is not None:
+            out["moe"]["shared"] = _tree(lp.moe.shared, _GLU)
     if lp.mlp is not None:
-        out["mlp"] = {n: _numpy(getattr(lp.mlp, n)) for n in _GLU}
+        out["mlp"] = _tree(lp.mlp, _GLU)
     return out
 
 
@@ -142,9 +161,9 @@ def _mamba_tree(lp: transformer.MambaLayer) -> dict:
 
 
 def lm_from_numpy(cfg, params, device=None):
-    """The port's model (a `Transformer`, or a `HybridLM` for the hybrid
-    family) from the reference's params pytree; stacked layer axes are
-    unstacked into one module a layer."""
+    """The port's model (a `Transformer` for the dense and MoE families,
+    a `HybridLM` for the hybrid one) from the reference's params pytree;
+    stacked layer axes are unstacked into one module a layer."""
     def t(a):
         return tensor(a, device)
 

@@ -13,14 +13,16 @@ from . import transformer
 
 ARCHS = {
     "llama3.2-3b": "repro_torch.configs.llama32_3b",
+    "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a27b",
+    "arctic-480b": "repro_torch.configs.arctic_480b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
 }
 
 # the reference's other architectures, still to port
 UNPORTED = {
     **dict.fromkeys(
-        ("whisper-large-v3", "qwen2-moe-a2.7b", "arctic-480b", "chatglm3-6b",
-         "gemma-7b", "starcoder2-3b", "internvl2-2b", "xlstm-125m"),
+        ("whisper-large-v3", "chatglm3-6b", "gemma-7b", "starcoder2-3b",
+         "internvl2-2b", "xlstm-125m"),
         "ROADMAP.md Queue 1 item 8 (the rest of the LM substrate)"),
 }
 

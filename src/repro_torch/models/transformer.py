@@ -1,7 +1,8 @@
-"""Decoder stacks: the dense family and the hybrid family (zamba2), with
-prefill forward and cached decode.
+"""Decoder stacks: the dense family, the MoE family (qwen2-moe, arctic)
+and the hybrid family (zamba2), with prefill forward and cached decode.
 
-Mirrors `repro.models.transformer` for llama3.2-3b and zamba2-7b:
+Mirrors `repro.models.transformer` for llama3.2-3b, qwen2-moe-a2.7b,
+arctic-480b and zamba2-7b:
 
   init_params(cfg, generator, device=...)   -> Transformer or HybridLM
   forward(cfg, model, batch, use_kernel=...) -> (logits [B, S, Vpad], aux)
@@ -9,14 +10,17 @@ Mirrors `repro.models.transformer` for llama3.2-3b and zamba2-7b:
   decode_step(cfg, model, state, tokens)     -> (logits [B, 1, Vpad], state)
 
 The reference scans stacked pytrees over the layers; here a `Transformer`
-holds an `nn.ModuleList` of `DenseLayer`s, and a `HybridLM` its Mamba-2
+holds an `nn.ModuleList` of `DenseLayer`s (an MoE layer's `DenseLayer`
+carries `moe`, and arctic's also the parallel dense `mlp`, both fed the
+same normed input), and a `HybridLM` its Mamba-2
 layers in groups of `attn_every` (a `mamba_tail` of the rest) and one
 weight-tied `shared` attention + GLU block that runs after every group.
 Weights keep the reference's names and `[d_in, d_out]` layout.  PyTorch
 runs eagerly, so there is no jit, scan or remat: `forward` runs under
 `torch.inference_mode()` unless `grad=True`.  The vocabulary is padded to
-a multiple of 16; with tied embeddings the head is `embed.T`.  The xLSTM,
-MoE and frontend families raise (ROADMAP.md).
+a multiple of 16; with tied embeddings the head is `embed.T`.  `forward`
+returns the MoE layers' aux losses summed (zero for the other families).
+The xLSTM and frontend families raise (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -28,13 +32,16 @@ from . import attention, ffn, layers, ssm
 
 
 class DenseLayer(nn.Module):
-    """Pre-norm attention + GLU: ln1, attn, ln2, mlp (absent if d_ff = 0)."""
+    """Pre-norm attention + FFN: ln1, attn, ln2, then `moe` (an `ffn.MoE`,
+    MoE family) and/or `mlp` (a GLU: the dense FFN, or arctic's parallel
+    dense residual; absent if d_ff = 0)."""
 
-    def __init__(self, attn, ln1, ln2, mlp=None):
+    def __init__(self, attn, ln1, ln2, mlp=None, moe=None):
         super().__init__()
         self.attn = attn
         self.ln1 = nn.Parameter(ln1)
         self.ln2 = nn.Parameter(ln2)
+        self.moe = moe
         self.mlp = mlp
 
 
@@ -85,21 +92,27 @@ class HybridLM(_LM):
 
 
 def check_family(cfg: ArchConfig) -> None:
-    """The port runs the dense and hybrid families; the rest names its
-    ROADMAP item."""
-    if cfg.xlstm or cfg.is_moe or cfg.frontend or cfg.family not in (
-            "dense", "hybrid"):
+    """The port runs the dense, MoE and hybrid families; the rest names
+    its ROADMAP item."""
+    if cfg.xlstm or cfg.frontend or cfg.family not in (
+            "dense", "moe", "hybrid"):
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} (xLSTM, MoE, frontends, "
+            f"{cfg.name}: family {cfg.family!r} (xLSTM, frontends, "
             f"enc-dec) is still to port, ROADMAP.md Queue 1 item 8")
+
+
+def _has_mlp(cfg: ArchConfig) -> bool:
+    """A dense GLU beside (arctic) or instead of the experts."""
+    return bool(cfg.d_ff) and (not cfg.is_moe or cfg.parallel_dense_ffn)
 
 
 def _dense_layer_init(generator, cfg: ArchConfig, **kw) -> DenseLayer:
     attn = attention.init(generator, cfg, **kw)
+    moe = ffn.moe_init(generator, cfg, **kw) if cfg.is_moe else None
     mlp = (ffn.glu_init(generator, cfg.d_model, cfg.d_ff, **kw)
-           if cfg.d_ff else None)
+           if _has_mlp(cfg) else None)
     return DenseLayer(attn, layers.norm_init(cfg.d_model, **kw),
-                      layers.norm_init(cfg.d_model, **kw), mlp)
+                      layers.norm_init(cfg.d_model, **kw), mlp, moe)
 
 
 def _mamba_layer_init(generator, cfg: ArchConfig, **kw) -> MambaLayer:
@@ -141,14 +154,26 @@ def _rope(cfg: ArchConfig, max_len: int, device):
                              cfg.rope_fraction, device=device)
 
 
+def _ffn(cfg: ArchConfig, lp: DenseLayer, h):
+    """h plus the layer's FFN on rmsnorm(h): the experts, then the dense
+    GLU (both on the same normed input).  Returns (h, the MoE's aux loss
+    or None)."""
+    hn = layers.rmsnorm(h, lp.ln2, cfg.norm_eps)
+    aux = None
+    if lp.moe is not None:
+        mo, aux = ffn.moe(lp.moe, hn, cfg)
+        h = h + mo
+    if lp.mlp is not None:
+        h = h + ffn.glu(lp.mlp, hn, cfg.act)
+    return h, aux
+
+
 def _dense_layer(cfg: ArchConfig, lp: DenseLayer, h, rope, use_kernel):
+    """One attention + FFN block -> (h, the MoE's aux loss or None)."""
     h = h + attention.full_attention(
         lp.attn, layers.rmsnorm(h, lp.ln1, cfg.norm_eps), cfg, rope,
         use_kernel=use_kernel)
-    if lp.mlp is not None:
-        h = h + ffn.glu(lp.mlp, layers.rmsnorm(h, lp.ln2, cfg.norm_eps),
-                        cfg.act)
-    return h
+    return _ffn(cfg, lp, h)
 
 
 def _mamba_layer(cfg: ArchConfig, lp: MambaLayer, h, use_kernel):
@@ -162,7 +187,7 @@ def _hybrid_forward(cfg: ArchConfig, model: HybridLM, h, rope, use_kernel):
     for group in model.mamba:
         for lp in group:
             h = _mamba_layer(cfg, lp, h, use_kernel)
-        h = _dense_layer(cfg, model.shared, h, rope, use_kernel)
+        h, _ = _dense_layer(cfg, model.shared, h, rope, use_kernel)
     for lp in model.mamba_tail:
         h = _mamba_layer(cfg, lp, h, use_kernel)
     return h
@@ -174,20 +199,23 @@ def forward(cfg: ArchConfig, model, batch, *, use_kernel: bool = False,
 
     `use_kernel=True` runs every attention through the flash kernel and
     every Mamba-2 scan through the ssd_scan kernel (one launch each on a
-    CUDA tensor).
+    CUDA tensor).  aux_loss is the MoE layers' load-balance losses summed
+    in layer order from a float32 zero (zero for the other families).
     """
     check_family(cfg)
     with torch.inference_mode(not grad):
         tokens = batch["tokens"]
         h = model.embed[tokens]
         rope = _rope(cfg, tokens.shape[1], h.device)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
         if cfg.family == "hybrid":
             h = _hybrid_forward(cfg, model, h, rope, use_kernel)
         else:
             for lp in model.layers:
-                h = _dense_layer(cfg, lp, h, rope, use_kernel)
+                h, a_loss = _dense_layer(cfg, lp, h, rope, use_kernel)
+                if a_loss is not None:
+                    aux = aux + a_loss
         h = layers.rmsnorm(h, model.ln_f, cfg.norm_eps)
-        aux = torch.zeros((), dtype=torch.float32, device=h.device)
         return h @ model.head(), aux
 
 
@@ -222,10 +250,7 @@ def _dense_decode_layer(cfg: ArchConfig, lp: DenseLayer, h, rope, cache,
     a, cache = attention.decode_attention(
         lp.attn, layers.rmsnorm(h, lp.ln1, cfg.norm_eps), cfg, rope,
         attention.KVCache(cache.k, cache.v, pos))
-    h = h + a
-    if lp.mlp is not None:
-        h = h + ffn.glu(lp.mlp, layers.rmsnorm(h, lp.ln2, cfg.norm_eps),
-                        cfg.act)
+    h, _ = _ffn(cfg, lp, h + a)
     return h, cache
 
 

@@ -5,9 +5,11 @@ PyTorch version (`repro_torch.kernels.ref`, itself held to the JAX
 reference by the other test_torch_* files) at small shapes with the edge
 cases of those files, plus the whole `contig_rounds`, `assemble` and
 `assemble_stream` on the card against the CPU run, under `Local` and
-under `Mesh(2)`, the HMM scorer on the card against the CPU, and the SMOKE llama's
-and SMOKE zamba2's `forward(use_kernel=True)` and greedy `Engine` on the
-card against the CPU run.  Skipped where no CUDA card is visible; on the
+under `Mesh(2)`, the HMM scorer on the card against the CPU, two jobs
+interleaved on a `JobServer(Local())` against their solo runs, and the
+SMOKE llama's and SMOKE zamba2's `forward(use_kernel=True)` and greedy
+`Engine` and the SMOKE qwen2-moe's `forward(use_kernel=True)` on the card
+against the CPU run.  Skipped where no CUDA card is visible; on the
 card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
@@ -17,7 +19,8 @@ flash_attention 1e-5 abs/rel in fp32 (online softmax, sums in another
 order) and 5e-2 in bf16 (the plain version rounds its logits to bf16);
 ssd_scan 2e-4 abs/rel (the reference's Pallas-against-oracle tolerance:
 chunked sums in another order); the SMOKE LMs' logits 1e-4 (cuBLAS
-against CPU matmuls), tokens exact.
+against CPU matmuls; the MoE combine's atomic adds), tokens exact; the
+JobServer's results exact.
 """
 import copy
 import dataclasses
@@ -1014,3 +1017,65 @@ def test_hybrid_greedy_engine_on_card_equals_cpu(smoke_hybrid, dev):
         assert not any(ops.LAUNCHES.values())  # decode: mamba2_step, no scan
     assert outs[0] == outs[1]
     assert all(len(o) > 0 for o in outs[0])
+
+
+# ---------- the JobServer and the MoE family ----------
+
+
+def test_job_server_on_card_equals_solo_runs(dev):
+    """Two jobs interleaved on one `JobServer(Local())`: the in-memory
+    `assemble` of `test_assemble_on_card_equals_cpu`'s plan and a gapped
+    `assemble_stream`, each equal to its solo run on the card."""
+    from repro_torch.serving import JobServer, JobSpec, JobState
+    comm = mgsim.sample_community(5, num_genomes=3, genome_len=300,
+                                  abundance_sigma=0.3)
+    reads, _ = mgsim.generate_reads(6, comm, num_pairs=400, read_len=60,
+                                    err_rate=0.003)
+    plan = AssemblyPlan.from_dataset(reads, (17, 21, 4), unique_rate=0.2)
+    splan = AssemblyPlan.from_stream(256, 60, (17, 21, 4),
+                                     unique_kmers=1000, slack=4.0,
+                                     gapped_align=True)
+    batches = batches_from_readset(reads, 256)
+    solo = Assembler(plan, Local(dev)).assemble(reads)
+    ssolo = Assembler(splan, Local(dev)).assemble_stream(batches)
+    srv = JobServer(Local(dev), budget_bytes=plan.bytes() + splan.bytes())
+    a = srv.submit(JobSpec("mem", reads=reads, plan=plan))
+    b = srv.submit(JobSpec("stream", batches=batches, plan=splan))
+    ops.reset_launches()
+    srv.run()
+    assert a.state == b.state == JobState.DONE, (a.error, b.error)
+    assert min(a.events, b.events) > 0
+    assert all(ops.LAUNCHES[n] > 0 for n in ASSEMBLY_KERNELS), ops.LAUNCHES
+    assert ops.LAUNCHES["flash_attention"] == ops.LAUNCHES["ssd_scan"] == 0
+    for got, want in ((srv.result("mem"), solo),
+                      (srv.result("stream"), ssolo)):
+        for key in ASSEMBLE_KEYS:  # both on the card
+            g, w = got[key], want[key]
+            _same(g if isinstance(g, tuple) else (g,),
+                  w if isinstance(w, tuple) else (w,))
+        assert got["stats"] == want["stats"]
+    assert srv.result("stream")["stream_stats"] == ssolo["stream_stats"]
+
+
+def test_moe_forward_on_card_equals_cpu(dev):
+    """The SMOKE qwen2-moe's kernel path (flash at every layer) on the
+    card against the CPU run, logits and aux loss; its dispatch runs the
+    card's sort, ranks and filtered scatters, and an atomic combine."""
+    from repro_torch.models import registry, transformer
+    cfg = registry.get("qwen2-moe-a2.7b", smoke=True)
+    g = torch.Generator()
+    g.manual_seed(0)
+    cpu = transformer.init_params(cfg, g, device="cpu")
+    card = copy.deepcopy(cpu).to(dev)
+    rng = np.random.default_rng(0)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 128)).astype(
+        np.int32))
+    ops.reset_launches()
+    got, aux = transformer.forward(cfg, card, {"tokens": tok.to(dev)},
+                                   use_kernel=True)
+    assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
+    assert sum(ops.LAUNCHES.values()) == cfg.n_layers
+    want, want_aux = transformer.forward(cfg, cpu, {"tokens": tok},
+                                         use_kernel=True)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-4, atol=1e-4)
