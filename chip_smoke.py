@@ -6,24 +6,29 @@ Drives the port's assembly paths on one virome-like community (under
 `Local`, paths 1-3, under `Mesh(8)`, path 6, and as jobs of the
 assembly `JobServer`, path 7): 24 genomes of 10-30 kbp (4 of them
 1%-divergent strains), 150k reads of 2 x 150 bp at ~45x mean coverage,
-and its three LM serving paths at full width with random fp32 weights:
-llama3.2-3b (path 4), the hybrid zamba2-7b (path 5) and the MoE
-qwen2-moe-a2.7b (path 8).  The community is sized so the first round's
-traversal fits the contig_cap of 4096 that the reference's
-(contig, mer) tag space allows with the (17, 21, 25) walk ladder: with
-40 genomes (+4 strains) and 240k reads that traversal finds 5893 chains.
+and its four LM serving paths at full width with random fp32 weights:
+llama3.2-3b (path 4), the hybrid zamba2-7b (path 5), the MoE
+qwen2-moe-a2.7b (path 8) and xlstm-125m (path 9).  The community is sized
+so the first round's traversal fits the contig_cap of 4096 that the
+reference's (contig, mer) tag space allows with the (17, 21, 25) walk
+ladder: with 40 genomes (+4 strains) and 240k reads that traversal finds
+5893 chains.
+
 Steps:
 
   1. card name and power limit (nvidia-smi);
-  2. build the eight CUDA kernels' libraries, and the latency probe's,
-     from src/repro_torch/kernels/csrc (one nvcc each, in parallel); every
+  2. build the eight CUDA kernels' libraries (ssd_scan's two: its
+     kernel for heads of P, N <= 64 and its wide kernel), and the latency
+     probe's, from src/repro_torch/kernels/csrc (one nvcc each, in
+     parallel); every
      kernel's registers, stack frame and spills (-Xptxas -v; it fails if
      sw_extend or seed_probe spills, or if the dht_lookup, mer_walk or
      latency probe kernels spill or keep a stack frame), and the
      flash_attention and
      ssd_scan kernels' tensor-core instructions in the built SASS
      (cuobjdump -sass: HGMMA in the bf16 flash kernel, HMMA in the fp32
-     flash kernel and ssd_scan; it fails without them);
+     flash kernel, ssd_scan and the wide ssd_scan's product kernels; it
+     fails without them);
   3. make the reads (host numpy, timed apart);
   4. path 1, Algorithm 1: `contig_rounds` with run_local_assembly=False,
      launch counts reset just before and read just after: each of
@@ -146,7 +151,26 @@ Steps:
      operations of the dense-capacity expert products), each slot's first
      decode logits against a prefill of its prompt alone replaying the
      decode's picks (<= 1e-3); 32 profiled decode steps; stage times and
-     peak memory.
+     peak memory;
+  13. path 9, the xLSTM serving path (last): xlstm-125m (6 pairs of an
+     mLSTM and an sLSTM block, d_model 768, 4 mLSTM heads of P = N = 192;
+     123,320,064 parameters, the reference's init_params leaves) built on
+     the card from a seeded torch.Generator; `forward(use_kernel=True)` on
+     2 x 4096 seeded tokens, counts reset just before and read just after:
+     the wide ssd_scan once an mLSTM block (6) and no other kernel; the
+     plain path against it (max abs logit difference <= 1e-3, argmax),
+     unless a float64 run of the whole model shows the plain path further
+     off, when the kernel path must be within 2x the plain path's
+     distance to it; the sLSTM loop's share of the prefill's wall (host
+     clock, synchronized around each sLSTM block); a profiled prefill of
+     2 x 512 tokens: the device busy share and the sLSTM loop's share of
+     the wall and of the kernel launches; the row `ssd_scan_xlstm`
+     (ssd_scan against its plain version at the prefill's last call) and
+     `ssd_scan_xlstm_long` (the same kernel alone at long_500k's length,
+     B 1, S 524,288, H 4, P = N = 192, on the mLSTM's input distribution
+     at init), each within |d| <= 2e-4 + 2e-4 |plain|, timed; the Engine
+     serving 8 seeded prompts for 160 greedy steps, prefill against decode
+     (<= 1e-3); 32 profiled decode steps; stage times and peak memory.
 
 Every profiled run also prints each of the eight ops' device time and
 kernel count (the profiler's kernels summed by the library each op
@@ -170,7 +194,8 @@ Any failure raises (non-zero exit, no result).  The line before the last
 is one JSON object with a record per kernel, path and call site (`path`
 names the main path whose shapes and launch counts it carries; the
 flash_attention rows of a path, fp32 and bf16, both carry the kernel's
-launches on that path, which runs fp32); the last line is {"ok": true,
+launches on that path, which runs fp32, and `ssd_scan_xlstm_long` path
+9's); the last line is {"ok": true,
 "device": {...}}.
 Without a CUDA card it exits non-zero.
 """
@@ -178,6 +203,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import gc
 import json
@@ -222,6 +248,9 @@ PATH3_KERNELS = PATH2_KERNELS + ("sw_extend",)
 PATH4_KERNELS = ("flash_attention",)
 PATH5_KERNELS = ("ssd_scan", "flash_attention")
 PATH8_KERNELS = ("flash_attention",)
+PATH9_KERNELS = ("ssd_scan",)
+# the wide ssd_scan (heads of P or N > 64): its own source, the same op
+SSD_WIDE_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan_wide.cu"
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 SCALAR_OPS_PER_S = 67e12    # H100 SXM 32-bit rate outside the tensor cores
 TENSOR_BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
@@ -280,6 +309,17 @@ MOE_SEED = 19
 MOE_PARAMS = 15_146_256_384
 # fp32 logits of two fp32 paths through 24 layers, the same expert picks
 MOE_LOGIT_TOL = 1e-3
+# path 9, the xLSTM family
+XLSTM_ARCH = "xlstm-125m"
+XLSTM_SEED = 29
+# the leaves of the reference's init_params at full width (its analytic
+# param_count() says 133,890,048: its 8 d^2 a block overcounts)
+XLSTM_PARAMS = 123_320_064
+# fp32 logits of two fp32 paths through 6 mLSTM and 6 sLSTM blocks
+XLSTM_LOGIT_TOL = 1e-3
+XLSTM_PROFILE_S = 512  # the profiled prefill's length (CUT, below)
+# one call of the wide scan at long_500k's length
+LONG_B, LONG_S, LONG_PLAIN_REPS = 1, 524_288, 3
 
 
 def log(*a):
@@ -740,6 +780,8 @@ def kernel_ops(build) -> dict:
                 continue
             if lib == "dht_probe":
                 op = "dht_lookup" if "lookup" in m.group(1) else "dht_insert"
+            if lib == "ssd_scan_wide":  # ops.ssd_scan's kernel for wide heads
+                op = "ssd_scan"
             names[m.group(1)] = op
     missing = [op for op in KERNELS if op not in names.values()]
     if missing:
@@ -753,7 +795,8 @@ def profile(fn, title, top=12):
     wall time (one stream, so kernels do not overlap), each of the eight
     ops' device time and kernel count (the profiler's kernels summed by
     the library each op builds), then the kernels and the PyTorch
-    operators that take the most of it."""
+    operators that take the most of it.  Returns the profile and the
+    wall time (s)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -764,7 +807,9 @@ def profile(fn, title, top=12):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    # a record_function range also shows on the device's timeline: no kernel
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
     log(f"profiled {title}: wall {wall:.3f} s, device busy {busy:.3f} s "
         f"({100 * busy / wall:.1f}%, idle {100 * (1 - busy / wall):.1f}%)")
@@ -785,6 +830,7 @@ def profile(fn, title, top=12):
         for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:top]:
             log(f"  {e.self_device_time_total / 1e3:10.2f} ms "
                 f"{e.count:7d} calls  {e.key[:100]}")
+    return prof, wall
 
 
 def assert_same(a, b, what):
@@ -1811,15 +1857,18 @@ def flash_row(row, ops, q, k, v, launches, card, path="lm_prefill"):
 # prefix, opcode)
 TENSOR_CORE_SASS = (("flash_attention", "flash_bf16_kernel", "HGMMA"),
                     ("flash_attention", "flash_f32_kernel", "HMMA"),
-                    ("ssd_scan", "ssd_scan_kernel", "HMMA"))
+                    ("ssd_scan", "ssd_scan_kernel", "HMMA"),
+                    ("ssd_scan_wide", "ssd_wide_chunk_state_kernel", "HMMA"),
+                    ("ssd_scan_wide", "ssd_wide_output_kernel", "HMMA"))
 
 
 def tensor_core_report(build):
     """Registers and spills (-Xptxas -v) of every kernel, and the
     tensor-core instructions of the flash_attention and ssd_scan kernels
     in the built SASS (cuobjdump -sass): HGMMA (wgmma) in the bf16 flash
-    kernel, HMMA (mma.sync) in the fp32 flash kernel and ssd_scan.  Fails
-    if a kernel lacks its tensor-core instructions."""
+    kernel, HMMA (mma.sync) in the fp32 flash kernel, ssd_scan and the
+    wide ssd_scan's two product kernels.  Fails if a kernel lacks its
+    tensor-core instructions."""
     def short(fn):  # the kernel's name and template arguments
         m = re.search(r"(\w+_kernel(<[^>]*>)?)\(", fn)
         return m.group(1) if m else fn
@@ -1851,7 +1900,7 @@ def tensor_core_report(build):
     if spilled:
         raise AssertionError(f"kernels spill or keep a stack frame: "
                              f"{spilled}")
-    for lib in ("flash_attention", "ssd_scan"):
+    for lib in ("flash_attention", "ssd_scan", "ssd_scan_wide"):
         counts = build.sass_counts(lib)
         if counts is None:
             log(f"  cuobjdump -sass {lib}: not available")
@@ -2190,11 +2239,16 @@ def phase_lm(ops, card):
     return records
 
 
-def ssd_row(ops, x, a, b, c, launches, card):
+def ssd_row(ops, x, a, b, c, launches, card, row="ssd_scan",
+            path="hybrid_prefill", plain_reps=20):
     """ssd_scan against its plain version at the path's call: within
-    |d| <= SSD_TOL + SSD_TOL |plain|, timed; no single PyTorch call
-    computes the scan, so there is no library yardstick."""
+    |d| <= SSD_TOL + SSD_TOL |plain|, timed (the plain version a median
+    of `plain_reps`); no single PyTorch call computes the scan, so there
+    is no library yardstick.  Heads of P or N > 64 run the wide kernel,
+    whose source the row names."""
     source, replaces = KERNELS["ssd_scan"]
+    if x.shape[-1] > 64 or b.shape[-1] > 64:
+        source = SSD_WIDE_SOURCE
     got = ops.ssd_scan(x, a, b, c)
     want = ops.ssd_scan(x, a, b, c, backend="torch")
     d = (got - want).abs()
@@ -2202,11 +2256,12 @@ def ssd_row(ops, x, a, b, c, launches, card):
     used = float((d / (SSD_TOL + SSD_TOL * want.abs())).max())
     top = float(want.abs().max())
     if used > 1 or not bool(torch.isfinite(got).all()):
-        raise AssertionError(f"ssd_scan: kernel != plain version (max abs "
+        raise AssertionError(f"{row}: kernel != plain version (max abs "
                              f"err {err}, tolerance {SSD_TOL})")
     del got, want, d
     ms = median_ms(lambda: ops.ssd_scan(x, a, b, c))
-    plain_ms = median_ms(lambda: ops.ssd_scan(x, a, b, c, backend="torch"))
+    plain_ms = median_ms(lambda: ops.ssd_scan(x, a, b, c, backend="torch"),
+                         reps=plain_reps)
     B, S, H, P = x.shape
     N = b.shape[-1]
     T = min(128, S)
@@ -2219,7 +2274,7 @@ def ssd_row(ops, x, a, b, c, launches, card):
     b_ms, b_by = bound_of(nbytes, flops, TENSOR_TF32X3_OPS_PER_S)
     t_ops = flops / TENSOR_TF32X3_OPS_PER_S * 1e3
     simt_ms, simt_by = bound_of(nbytes, flops, SCALAR_OPS_PER_S)
-    log(f"ssd_scan: x {list(x.shape)}, a {list(a.shape)}, b/c "
+    log(f"{row}: x {list(x.shape)}, a {list(a.shape)}, b/c "
         f"{list(b.shape)}, fp32, chunk {T}; max abs err {err:.3g} against "
         f"plain (|plain| <= {top:.1f}), {used:.3f} of the tolerance |d| <= "
         f"{SSD_TOL} + {SSD_TOL} |plain|; kernel {ms:.4f} ms, plain "
@@ -2228,10 +2283,10 @@ def ssd_row(ops, x, a, b, c, launches, card):
         f"{TENSOR_TF32X3_OPS_PER_S / 1e12:.0f} TFLOP/s take {t_ops:.4f} ms); "
         f"fp32 SIMT bound {simt_ms:.4f} ms ({simt_by}); {card}")
     return dict(
-        name="ssd_scan", route="cuda", source=source, replaces=replaces,
+        name=row, route="cuda", source=source, replaces=replaces,
         launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        path="hybrid_prefill", dtype="float32", simt_bound_ms=simt_ms)
+        path=path, dtype="float32", simt_bound_ms=simt_ms)
 
 
 def phase_hybrid(ops, card):
@@ -2532,6 +2587,213 @@ def phase_moe(ops, card):
     return records
 
 
+def slstm_launch_share(prof, wall):
+    """The sLSTM loop's share of a profiled run's wall and of its kernel
+    launches: the spans of `record_function("slstm_block")` against the
+    runtime's launch calls (cudaLaunchKernel and its kin) in them."""
+    from torch.autograd import DeviceType
+
+    spans, starts = [], []
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        if e.name == "slstm_block":
+            spans.append((e.time_range.start, e.time_range.end))
+        elif "LaunchKernel" in e.name:
+            starts.append(e.time_range.start)
+    inside = sum(any(lo <= t <= hi for lo, hi in spans) for t in starts)
+    span_s = sum(hi - lo for lo, hi in spans) / 1e6
+    return span_s / wall, inside, len(starts)
+
+
+def phase_xlstm(ops, card):
+    """Path 9: xlstm-125m at full width, random fp32 weights; the prefill
+    forward through the wide ssd_scan against the plain path (with a
+    float64 witness of the whole model), the sLSTM loop's share of the
+    prefill, the kernel's rows at the prefill's call and at long_500k's
+    length, and the decode Engine serving 8 requests, cross-checked
+    against the prefill.  Returns the JSON records of its two rows."""
+    from repro_torch.models import registry, ssm, transformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    cfg = registry.get(XLSTM_ARCH)
+    n_pairs = cfg.n_layers // 2
+    hd = cfg.d_model // cfg.n_heads
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held0 = torch.cuda.memory_allocated()
+    stages = {}
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=LM_DEVICE)
+    gen.manual_seed(XLSTM_SEED)
+    model = transformer.init_params(cfg, gen, device=LM_DEVICE)
+    torch.cuda.synchronize()
+    stages["init_params"] = time.perf_counter() - t0
+    n = sum(p.numel() for p in model.parameters())
+    weights = torch.cuda.memory_allocated() - held0
+    log(f"path 9 model: {cfg.name}, {n_pairs} pairs of an mLSTM block "
+        f"({cfg.n_heads} heads of P = N = {hd}) and an sLSTM block, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab}, untied; {n} parameters (the "
+        f"reference's init_params leaves: {XLSTM_PARAMS}; its "
+        f"param_count(): {int(cfg.param_count())}), {weights / 1e9:.2f} GB "
+        f"fp32 on the card, random from torch.Generator seed {XLSTM_SEED}, "
+        f"built in {stages['init_params']:.2f} s")
+    if n != XLSTM_PARAMS or next(model.parameters()).device.type != \
+            LM_DEVICE:
+        raise AssertionError("the model is not xlstm-125m at full width on "
+                             "the card")
+
+    # ---- prefill: the kernel path (clean), the plain path, float64 ----
+    log(f"CUT: prefill of B={PREFILL_B} x S={PREFILL_S} tokens "
+        f"({PREFILL_S // 128} chunks of 128) instead of prefill_32k's "
+        f"32 x 32768, as paths 4, 5 and 8; long_500k is not run end to "
+        f"end, only its scan call (below)")
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
+                           generator=gen, device=LM_DEVICE, dtype=torch.int32)
+    batch = {"tokens": tokens}
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    logits, aux = transformer.forward(cfg, model, batch, use_kernel=True)
+    torch.cuda.synchronize()
+    stages["prefill (kernel path)"] = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    log(f"launches in the prefill forward: {launches}")
+    check_path_kernels(launches, PATH9_KERNELS, "path 9")
+    if launches["ssd_scan"] != n_pairs:
+        raise AssertionError(f"ssd_scan launched {launches['ssd_scan']} "
+                             f"times, expected one an mLSTM block "
+                             f"({n_pairs})")
+    if logits.shape != (PREFILL_B, PREFILL_S, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()) or float(aux) != 0.0:
+        raise AssertionError("prefill logits have the wrong shape or are "
+                             "not finite")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    plain, _ = transformer.forward(cfg, model, batch)
+    torch.cuda.synchronize()
+    stages["prefill (plain path)"] = time.perf_counter() - t0
+    if any(ops.LAUNCHES.values()):
+        raise AssertionError(f"plain path launched kernels: {ops.LAUNCHES}")
+    t0 = time.perf_counter()
+    exact_model = copy.deepcopy(model).to(torch.float64)
+    exact, _ = transformer.forward(cfg, exact_model, batch)
+    del exact_model
+    torch.cuda.synchronize()
+    stages["float64 witness (plain path)"] = time.perf_counter() - t0
+    k_err = max(float((k.double() - e).abs_().max())
+                for k, e in zip(logits, exact))
+    p_err = max(float((p.double() - e).abs_().max())
+                for p, e in zip(plain, exact))
+    del exact
+    tol = XLSTM_LOGIT_TOL if p_err <= XLSTM_LOGIT_TOL else float("inf")
+    log(f"float64 witness, the whole model on the prefill's tokens: kernel "
+        f"path {k_err:.3g}, plain path {p_err:.3g} from it; the kernel path "
+        f"is held to the plain path within {XLSTM_LOGIT_TOL}"
+        + ("" if tol < float("inf") else
+           f", and, the plain path being further off, to within 2 x "
+           f"{p_err:.3g} of float64"))
+    compare_logits(logits, plain, tol,
+                   "prefill, kernel path against plain path")
+    if tol == float("inf") and not k_err <= 2 * p_err:
+        raise AssertionError("the kernel path strays further from float64 "
+                             "than twice the plain path's rounding")
+    del logits, plain
+
+    # ---- the sLSTM loop's share; the path's last call of the scan ----
+    calls = {}
+    spent = [0.0]
+    orig_scan, orig_slstm = ops.ssd_scan, ssm.slstm_block
+
+    def scan(*args, **kw):
+        calls["ssd_scan"] = args
+        return orig_scan(*args, **kw)
+
+    def slstm(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with torch.profiler.record_function("slstm_block"):
+            out = orig_slstm(*args, **kw)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t
+        return out
+
+    ops.ssd_scan, ssm.slstm_block = scan, slstm
+    try:
+        t0 = time.perf_counter()
+        transformer.forward(cfg, model, batch, use_kernel=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        log(f"prefill with each sLSTM block timed (host clock, synchronized "
+            f"before and after): {wall:.3f} s, the {n_pairs} sLSTM loops "
+            f"{spent[0]:.3f} s ({100 * spent[0] / wall:.1f}%), the rest "
+            f"{wall - spent[0]:.3f} s; {card}")
+        last = calls["ssd_scan"]  # the full prefill's last call
+        log(f"CUT: the profiled prefill takes B={PREFILL_B} x "
+            f"S={XLSTM_PROFILE_S} tokens: the sLSTM loop launches ~11 "
+            f"kernels a position and layer, and the profiler's events of "
+            f"2 x {PREFILL_S} would take longer to gather than the run")
+        short = {"tokens": tokens[:, :XLSTM_PROFILE_S].contiguous()}
+        prof, pwall = profile(
+            lambda: transformer.forward(cfg, model, short, use_kernel=True),
+            f"prefill forward of {PREFILL_B} x {XLSTM_PROFILE_S}, kernel "
+            f"path")
+    finally:
+        ops.ssd_scan, ssm.slstm_block = orig_scan, orig_slstm
+    share, inside, total = slstm_launch_share(prof, pwall)
+    log(f"  the sLSTM loops in that run: {100 * share:.1f}% of the wall, "
+        f"{inside} of its {total} kernel launches "
+        f"({100 * inside / max(total, 1):.1f}%)")
+    del prof
+    records = [ssd_row(ops, *last, launches["ssd_scan"], card,
+                       row="ssd_scan_xlstm", path="xlstm_prefill")]
+    del calls, last
+
+    # ---- the wide scan alone at long_500k's length ----
+    t0 = time.perf_counter()
+    H = cfg.n_heads
+    g = torch.Generator(device=LM_DEVICE)
+    g.manual_seed(XLSTM_SEED + 1)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=LM_DEVICE)
+
+    # the mLSTM's inputs at init: x = v sigmoid(i), a = log sigmoid(f),
+    # b = k, c = q / sqrt(P)
+    x = randn(LONG_B, LONG_S, H, hd) * torch.sigmoid(
+        randn(LONG_B, LONG_S, H))[..., None]
+    a = torch.nn.functional.logsigmoid(randn(LONG_B, LONG_S, H))
+    b = randn(LONG_B, LONG_S, H, hd)
+    c = randn(LONG_B, LONG_S, H, hd) / hd ** 0.5
+    log(f"long_500k's scan call: B={LONG_B}, S={LONG_S}, H={H}, P = N = "
+        f"{hd}, {x.numel() * 4 / 1e9:.2f} GB a tensor; the plain version "
+        f"timed {LONG_PLAIN_REPS} times")
+    records.append(ssd_row(ops, x, a, b, c, launches["ssd_scan"], card,
+                           row="ssd_scan_xlstm_long", path="xlstm_long",
+                           plain_reps=LONG_PLAIN_REPS))
+    del x, a, b, c
+    torch.cuda.synchronize()
+    stages["long_500k scan call (kernel and plain)"] = \
+        time.perf_counter() - t0
+    peak_long = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+
+    serve_and_check(cfg, model, ops, card, stages, weights, XLSTM_SEED,
+                    "path 9", XLSTM_LOGIT_TOL)
+    for name, t in stages.items():
+        log(f"[path 9] stage {name}: {t:.3f} s")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"peak device memory (path 9): {peak_long / 1e9:.2f} GB through "
+        f"the long_500k scan call, {peak / 1e9:.2f} GB in all; {card}")
+    del model, tokens, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return records
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--num-pairs", type=int, default=DEFAULT_PAIRS,
@@ -2611,6 +2873,7 @@ def main(argv=None) -> int:
     records += phase_lm(ops, card)
     records += phase_hybrid(ops, card)
     records += phase_moe(ops, card)
+    records += phase_xlstm(ops, card)
 
     log(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     log(card)

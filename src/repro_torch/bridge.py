@@ -18,7 +18,9 @@ arrays (dense and MoE: every layer parameter stacked on a leading
 `layers` axis, an MoE layer's `moe` holding `router`, the expert stacks
 `wi` / `wg` / `wo` and its `shared` GLU; hybrid: `mamba` leaves stacked
 [groups, attn_every, ...], `mamba_tail` [rest, ...] and one `shared`
-block), and `lm_to_numpy(model)` gives that pytree back.
+block; xLSTM: `pairs` leaves stacked [n_layers // 2, ...], each pair's
+`m`, `s`, `ln_m` and `ln_s`), and `lm_to_numpy(model)` gives that pytree
+back.
 """
 from __future__ import annotations
 
@@ -135,6 +137,13 @@ def _mamba_layer(p, t) -> transformer.MambaLayer:
         t(p["ln"]))
 
 
+def _xlstm_pair(p, t) -> transformer.XLSTMPair:
+    return transformer.XLSTMPair(
+        ssm.MLSTM(*(t(p["m"][n]) for n in ssm.MLSTM_PARAMS)),
+        ssm.SLSTM(*(t(p["s"][n]) for n in ssm.SLSTM_PARAMS)),
+        t(p["ln_m"]), t(p["ln_s"]))
+
+
 def _numpy(p):
     return p.detach().cpu().numpy()
 
@@ -160,10 +169,17 @@ def _mamba_tree(lp: transformer.MambaLayer) -> dict:
                       for n in ssm.MAMBA2_PARAMS}, "ln": _numpy(lp.ln)}
 
 
+def _xlstm_tree(lp: transformer.XLSTMPair) -> dict:
+    return {"m": _tree(lp.m, ssm.MLSTM_PARAMS),
+            "s": _tree(lp.s, ssm.SLSTM_PARAMS),
+            "ln_m": _numpy(lp.ln_m), "ln_s": _numpy(lp.ln_s)}
+
+
 def lm_from_numpy(cfg, params, device=None):
     """The port's model (a `Transformer` for the dense and MoE families,
-    a `HybridLM` for the hybrid one) from the reference's params pytree;
-    stacked layer axes are unstacked into one module a layer."""
+    a `HybridLM` for the hybrid one, an `XLSTMLM` for xLSTM) from the
+    reference's params pytree; stacked layer axes are unstacked into one
+    module a layer (or pair)."""
     def t(a):
         return tensor(a, device)
 
@@ -178,6 +194,10 @@ def lm_from_numpy(cfg, params, device=None):
         return transformer.HybridLM(cfg, embed, ln_f, groups, tail,
                                     _dense_layer(params["shared"], t),
                                     lm_head)
+    if cfg.xlstm:
+        pairs = [_xlstm_pair(_index(params["pairs"], i), t)
+                 for i in range(cfg.n_layers // 2)]
+        return transformer.XLSTMLM(cfg, embed, ln_f, pairs, lm_head)
     dense = [_dense_layer(_index(params["layers"], i), t)
              for i in range(cfg.n_layers)]
     return transformer.Transformer(cfg, embed, ln_f, dense, lm_head)
@@ -193,6 +213,8 @@ def lm_to_numpy(model) -> dict:
             out["mamba_tail"] = _stack([_mamba_tree(lp)
                                         for lp in model.mamba_tail])
         out["shared"] = _dense_tree(model.shared)
+    elif isinstance(model, transformer.XLSTMLM):
+        out["pairs"] = _stack([_xlstm_tree(lp) for lp in model.pairs])
     else:
         out["layers"] = _stack([_dense_tree(lp) for lp in model.layers])
     if model.lm_head is not None:

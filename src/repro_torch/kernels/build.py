@@ -72,6 +72,10 @@ SIGNATURES = {
     "ssd_scan": {
         "ssd_scan_launch": [_P] * 5 + [_I] * 6 + [_P],
     },
+    "ssd_scan_wide": {
+        "ssd_scan_wide_max_width": [],
+        "ssd_scan_wide_launch": [_P] * 7 + [_I] * 6 + [_P],
+    },
     # no kernel of the port: the walk's latency bound (chip_smoke.py)
     "latency_probe": {
         "latency_probe_launch": [_P, ctypes.c_uint, _L, _P, _P, _P],

@@ -445,8 +445,10 @@ def flash_attention(q, k, v, *, causal: bool = True, scale=None,
     return out
 
 
-# the ssd_scan kernel's fixed maxima (csrc/ssd_scan.cu: kT, kP, kN)
+# the ssd_scan kernels' maxima: csrc/ssd_scan.cu (kT, kP, kN) takes heads
+# of P, N <= 64, csrc/ssd_scan_wide.cu (kT, kMaxWidth) those up to 256
 _SSD_MAX_CHUNK, _SSD_MAX_P, _SSD_MAX_N = 128, 64, 64
+_SSD_WIDE_MAX = 256
 
 
 def ssd_scan(x, a, b, c, *, chunk: int = 128, backend=None):
@@ -454,8 +456,10 @@ def ssd_scan(x, a, b, c, *, chunk: int = 128, backend=None):
     b, c [B, S, H, N] -> y [B, S, H, P] (`ref.ssd_scan_ref`).
 
     The chunk is Q = min(chunk, S) and S must be a multiple of it, on both
-    paths.  The kernel takes contiguous fp32 tensors with Q <= 128,
-    P <= 64 and N <= 64.
+    paths.  The kernels take contiguous fp32 tensors with Q <= 128:
+    `ssd_scan.cu` heads of P, N <= 64 (zamba2's), `ssd_scan_wide.cu` the
+    wider ones up to P, N <= 256 (the mLSTM's 192) with B H <= 65535; a
+    wider head raises.
     """
     if x.dim() != 4:
         raise ValueError(f"ssd_scan: x must be [B, S, H, P], got "
@@ -469,20 +473,31 @@ def ssd_scan(x, a, b, c, *, chunk: int = 128, backend=None):
         raise ValueError(f"ssd_scan: x {tuple(x.shape)}, a {tuple(a.shape)}, "
                          f"b {tuple(b.shape)}, c {tuple(c.shape)}: need a "
                          f"[B, S, H] and b, c [B, S, H, N]")
-    if Q > _SSD_MAX_CHUNK or not 1 <= P <= _SSD_MAX_P or \
-            not 1 <= N <= _SSD_MAX_N:
-        raise ValueError(f"ssd_scan: the kernel takes chunk <= "
-                         f"{_SSD_MAX_CHUNK}, P <= {_SSD_MAX_P} and N <= "
-                         f"{_SSD_MAX_N}, got chunk {Q}, P={P}, N={N}")
-    if B * H >= 1 << 31:
+    if Q > _SSD_MAX_CHUNK or not 1 <= P <= _SSD_WIDE_MAX or \
+            not 1 <= N <= _SSD_WIDE_MAX:
+        raise ValueError(f"ssd_scan: the kernels take chunk <= "
+                         f"{_SSD_MAX_CHUNK}, P <= {_SSD_WIDE_MAX} and N <= "
+                         f"{_SSD_WIDE_MAX}, got chunk {Q}, P={P}, N={N}")
+    wide = P > _SSD_MAX_P or N > _SSD_MAX_N
+    if B * H >= (1 << 16 if wide else 1 << 31):
         raise ValueError(f"ssd_scan: grid of B*H={B * H} exceeds the "
                          f"launch limit")
     dev = x.device
     for name, t in (("x", x), ("a", a), ("b", b), ("c", c)):
         _check(name, t, torch.float32, dev)
     y = torch.empty_like(x)
-    lib = build.library("ssd_scan")
-    err = lib.ssd_scan_launch(_ptr(x), _ptr(a), _ptr(b), _ptr(c), _ptr(y),
-                              B, S, H, P, N, Q, _stream(dev))
+    if not wide:
+        lib = build.library("ssd_scan")
+        err = lib.ssd_scan_launch(_ptr(x), _ptr(a), _ptr(b), _ptr(c),
+                                  _ptr(y), B, S, H, P, N, Q, _stream(dev))
+    else:  # the chunks' carried states, fp32 [B, H, S / Q, P, N]
+        nc = S // Q
+        states = torch.empty((B, H, nc, P, N), dtype=torch.float32,
+                             device=dev)
+        totals = torch.empty((B, H, nc), dtype=torch.float32, device=dev)
+        lib = build.library("ssd_scan_wide")
+        err = lib.ssd_scan_wide_launch(
+            _ptr(x), _ptr(a), _ptr(b), _ptr(c), _ptr(y), _ptr(states),
+            _ptr(totals), B, S, H, P, N, Q, _stream(dev))
     _launched("ssd_scan", lib, err)
     return y

@@ -16,13 +16,14 @@ ARCHS = {
     "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a27b",
     "arctic-480b": "repro_torch.configs.arctic_480b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
+    "xlstm-125m": "repro_torch.configs.xlstm_125m",
 }
 
 # the reference's other architectures, still to port
 UNPORTED = {
     **dict.fromkeys(
         ("whisper-large-v3", "chatglm3-6b", "gemma-7b", "starcoder2-3b",
-         "internvl2-2b", "xlstm-125m"),
+         "internvl2-2b"),
         "ROADMAP.md Queue 1 item 8 (the rest of the LM substrate)"),
 }
 

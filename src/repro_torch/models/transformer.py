@@ -1,10 +1,12 @@
-"""Decoder stacks: the dense family, the MoE family (qwen2-moe, arctic)
-and the hybrid family (zamba2), with prefill forward and cached decode.
+"""Decoder stacks: the dense family, the MoE family (qwen2-moe, arctic),
+the hybrid family (zamba2) and the xLSTM family, with prefill forward and
+cached decode.
 
 Mirrors `repro.models.transformer` for llama3.2-3b, qwen2-moe-a2.7b,
-arctic-480b and zamba2-7b:
+arctic-480b, zamba2-7b and xlstm-125m:
 
-  init_params(cfg, generator, device=...)   -> Transformer or HybridLM
+  init_params(cfg, generator, device=...)   -> Transformer, HybridLM or
+                                               XLSTMLM
   forward(cfg, model, batch, use_kernel=...) -> (logits [B, S, Vpad], aux)
   init_decode_state(cfg, B, max_len)         -> the family's decode state
   decode_step(cfg, model, state, tokens)     -> (logits [B, 1, Vpad], state)
@@ -14,13 +16,16 @@ holds an `nn.ModuleList` of `DenseLayer`s (an MoE layer's `DenseLayer`
 carries `moe`, and arctic's also the parallel dense `mlp`, both fed the
 same normed input), and a `HybridLM` its Mamba-2
 layers in groups of `attn_every` (a `mamba_tail` of the rest) and one
-weight-tied `shared` attention + GLU block that runs after every group.
+weight-tied `shared` attention + GLU block that runs after every group,
+and an `XLSTMLM` n_layers / 2 `XLSTMPair`s (an mLSTM, then an sLSTM block,
+each pre-normed).
 Weights keep the reference's names and `[d_in, d_out]` layout.  PyTorch
 runs eagerly, so there is no jit, scan or remat: `forward` runs under
 `torch.inference_mode()` unless `grad=True`.  The vocabulary is padded to
 a multiple of 16; with tied embeddings the head is `embed.T`.  `forward`
 returns the MoE layers' aux losses summed (zero for the other families).
-The xLSTM and frontend families raise (ROADMAP.md).
+Rotary tables are built only for the families that attend (not xLSTM).
+The frontend and enc-dec families raise (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -52,6 +57,18 @@ class MambaLayer(nn.Module):
         super().__init__()
         self.mixer = mixer
         self.ln = nn.Parameter(ln)
+
+
+class XLSTMPair(nn.Module):
+    """One xLSTM pair: ln_m, m (an `ssm.MLSTM`), then ln_s, s (an
+    `ssm.SLSTM`), each a pre-normed residual block."""
+
+    def __init__(self, m, s, ln_m, ln_s):
+        super().__init__()
+        self.m = m
+        self.s = s
+        self.ln_m = nn.Parameter(ln_m)
+        self.ln_s = nn.Parameter(ln_s)
 
 
 class _LM(nn.Module):
@@ -91,14 +108,22 @@ class HybridLM(_LM):
         self.shared = shared
 
 
+class XLSTMLM(_LM):
+    """The xLSTM family: `pairs`, n_layers // 2 `XLSTMPair`s."""
+
+    def __init__(self, cfg: ArchConfig, embed, ln_f, pairs, lm_head=None):
+        super().__init__(cfg, embed, ln_f, lm_head)
+        self.pairs = nn.ModuleList(pairs)
+
+
 def check_family(cfg: ArchConfig) -> None:
-    """The port runs the dense, MoE and hybrid families; the rest names
-    its ROADMAP item."""
-    if cfg.xlstm or cfg.frontend or cfg.family not in (
-            "dense", "moe", "hybrid"):
+    """The port runs the dense, MoE, hybrid and xLSTM families; the rest
+    names its ROADMAP item."""
+    if cfg.frontend or not (cfg.xlstm or cfg.family in (
+            "dense", "moe", "hybrid")):
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} (xLSTM, frontends, "
-            f"enc-dec) is still to port, ROADMAP.md Queue 1 item 8")
+            f"{cfg.name}: family {cfg.family!r} (frontends, enc-dec) is "
+            f"still to port, ROADMAP.md Queue 1 item 8")
 
 
 def _has_mlp(cfg: ArchConfig) -> bool:
@@ -118,6 +143,13 @@ def _dense_layer_init(generator, cfg: ArchConfig, **kw) -> DenseLayer:
 def _mamba_layer_init(generator, cfg: ArchConfig, **kw) -> MambaLayer:
     return MambaLayer(ssm.mamba2_init(generator, cfg, **kw),
                       layers.norm_init(cfg.d_model, **kw))
+
+
+def _xlstm_pair_init(generator, cfg: ArchConfig, **kw) -> XLSTMPair:
+    return XLSTMPair(ssm.mlstm_init(generator, cfg, **kw),
+                     ssm.slstm_init(generator, cfg, **kw),
+                     layers.norm_init(cfg.d_model, **kw),
+                     layers.norm_init(cfg.d_model, **kw))
 
 
 def init_params(cfg: ArchConfig, generator=None, *, device=None,
@@ -142,13 +174,19 @@ def init_params(cfg: ArchConfig, generator=None, *, device=None,
         tail = [_mamba_layer_init(generator, cfg, **kw) for _ in range(rem)]
         shared = _dense_layer_init(generator, cfg, **kw)
         return HybridLM(cfg, embed, ln_f, groups, tail, shared, lm_head)
+    if cfg.xlstm:
+        assert cfg.n_layers % 2 == 0, cfg.n_layers
+        pairs = [_xlstm_pair_init(generator, cfg, **kw)
+                 for _ in range(cfg.n_layers // 2)]
+        return XLSTMLM(cfg, embed, ln_f, pairs, lm_head)
     stack = [_dense_layer_init(generator, cfg, **kw)
              for _ in range(cfg.n_layers)]
     return Transformer(cfg, embed, ln_f, stack, lm_head)
 
 
 def _rope(cfg: ArchConfig, max_len: int, device):
-    if cfg.rope_fraction <= 0:
+    """Rotary tables, for the families that attend (all but xLSTM)."""
+    if cfg.rope_fraction <= 0 or cfg.xlstm:
         return None
     return layers.rope_freqs(cfg.hd, max_len, cfg.rope_theta,
                              cfg.rope_fraction, device=device)
@@ -193,14 +231,25 @@ def _hybrid_forward(cfg: ArchConfig, model: HybridLM, h, rope, use_kernel):
     return h
 
 
+def _xlstm_forward(cfg: ArchConfig, model: XLSTMLM, h, use_kernel):
+    for lp in model.pairs:
+        h = h + ssm.mlstm_block(
+            lp.m, layers.rmsnorm(h, lp.ln_m, cfg.norm_eps), cfg,
+            use_kernel=use_kernel)
+        h = h + ssm.slstm_block(
+            lp.s, layers.rmsnorm(h, lp.ln_s, cfg.norm_eps), cfg)
+    return h
+
+
 def forward(cfg: ArchConfig, model, batch, *, use_kernel: bool = False,
             grad: bool = False):
     """Prefill forward -> (logits [B, S, Vpad], aux_loss).
 
     `use_kernel=True` runs every attention through the flash kernel and
-    every Mamba-2 scan through the ssd_scan kernel (one launch each on a
-    CUDA tensor).  aux_loss is the MoE layers' load-balance losses summed
-    in layer order from a float32 zero (zero for the other families).
+    every Mamba-2 or mLSTM scan through the ssd_scan kernel (one launch
+    each on a CUDA tensor).  aux_loss is the MoE layers' load-balance
+    losses summed in layer order from a float32 zero (zero for the other
+    families).
     """
     check_family(cfg)
     with torch.inference_mode(not grad):
@@ -210,6 +259,8 @@ def forward(cfg: ArchConfig, model, batch, *, use_kernel: bool = False,
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         if cfg.family == "hybrid":
             h = _hybrid_forward(cfg, model, h, rope, use_kernel)
+        elif cfg.xlstm:
+            h = _xlstm_forward(cfg, model, h, use_kernel)
         else:
             for lp in model.layers:
                 h, a_loss = _dense_layer(cfg, lp, h, rope, use_kernel)
@@ -224,7 +275,9 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
     """Dense: one KV cache a layer, all at the shared write position `pos`.
     Hybrid: an fp32 `SSMState` a Mamba-2 layer (`mamba` in groups,
     `mamba_tail`, None without a tail) and one KV cache a group for the
-    shared block (`shared_cache`), in `dtype`."""
+    shared block (`shared_cache`), in `dtype`.  xLSTM: an fp32 mLSTM
+    `SSMState` (`m`) and sLSTM `SLSTMState` (`s`) a pair; `dtype` is
+    ignored, as in the reference."""
     check_family(cfg)
     device = layers.resolve_device(device)
     with torch.inference_mode():
@@ -232,6 +285,12 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
             return [attention.init_cache(cfg, batch, max_len, dtype, device)
                     for _ in range(n)]
 
+        if cfg.xlstm:
+            n_pairs = cfg.n_layers // 2
+            return {"m": [ssm.mlstm_init_state(cfg, batch, device)
+                          for _ in range(n_pairs)],
+                    "s": [ssm.slstm_init_state(cfg, batch, device)
+                          for _ in range(n_pairs)], "pos": 0}
         if cfg.family != "hybrid":
             return {"caches": caches(cfg.n_layers), "pos": 0}
         n_groups, rem = divmod(cfg.n_layers, cfg.attn_every)
@@ -280,11 +339,25 @@ def _hybrid_decode(cfg: ArchConfig, model: HybridLM, state, h, rope):
                "shared_cache": new_caches, "pos": pos + 1}
 
 
+def _xlstm_decode(cfg: ArchConfig, model: XLSTMLM, state, h):
+    new_m, new_s = [], []
+    for lp, m_st, s_st in zip(model.pairs, state["m"], state["s"]):
+        out, m_st = ssm.mlstm_step(
+            lp.m, layers.rmsnorm(h, lp.ln_m, cfg.norm_eps), cfg, m_st)
+        h = h + out
+        out, s_st = ssm.slstm_step(
+            lp.s, layers.rmsnorm(h, lp.ln_s, cfg.norm_eps), cfg, s_st)
+        h = h + out
+        new_m.append(m_st)
+        new_s.append(s_st)
+    return h, {"m": new_m, "s": new_s, "pos": state["pos"] + 1}
+
+
 def decode_step(cfg: ArchConfig, model, state, tokens):
     """One-token decode.  tokens: [B, 1] -> (logits [B, 1, Vpad], state).
 
-    The KV caches of `state` are updated in place; the SSM states are
-    replaced.  The returned state holds pos + 1.
+    The KV caches of `state` are updated in place; the SSM, mLSTM and
+    sLSTM states are replaced.  The returned state holds pos + 1.
     """
     check_family(cfg)
     with torch.inference_mode():
@@ -292,6 +365,8 @@ def decode_step(cfg: ArchConfig, model, state, tokens):
         rope = _rope(cfg, cfg.max_seq, h.device)
         if cfg.family == "hybrid":
             h, new_state = _hybrid_decode(cfg, model, state, h, rope)
+        elif cfg.xlstm:
+            h, new_state = _xlstm_decode(cfg, model, state, h)
         else:
             pos = state["pos"]
             caches = []

@@ -7,9 +7,9 @@ cases of those files, plus the whole `contig_rounds`, `assemble` and
 `assemble_stream` on the card against the CPU run, under `Local` and
 under `Mesh(2)`, the HMM scorer on the card against the CPU, two jobs
 interleaved on a `JobServer(Local())` against their solo runs, and the
-SMOKE llama's and SMOKE zamba2's `forward(use_kernel=True)` and greedy
-`Engine` and the SMOKE qwen2-moe's `forward(use_kernel=True)` on the card
-against the CPU run.  Skipped where no CUDA card is visible; on the
+SMOKE llama's, SMOKE zamba2's and SMOKE xLSTM's `forward(use_kernel=True)`
+and greedy `Engine` and the SMOKE qwen2-moe's `forward(use_kernel=True)`
+on the card against the CPU run.  Skipped where no CUDA card is visible; on the
 card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
@@ -957,10 +957,12 @@ def test_ssd_scan_kernel_refuses_what_it_does_not_take(dev):
     x, a, b, c = _ssd_inputs(0, 1, 256, 2, 16, 16, dev)
     with pytest.raises(ValueError, match="chunk <= 128"):
         ops.ssd_scan(x, a, b, c, chunk=256)
-    with pytest.raises(ValueError, match="P <= 64"):
-        ops.ssd_scan(*_ssd_inputs(0, 1, 128, 2, 65, 16, dev))
-    with pytest.raises(ValueError, match="N <= 64"):
-        ops.ssd_scan(*_ssd_inputs(0, 1, 128, 2, 16, 80, dev))
+    with pytest.raises(ValueError, match="P <= 256"):
+        ops.ssd_scan(*_ssd_inputs(0, 1, 128, 2, 257, 16, dev))
+    with pytest.raises(ValueError, match="N <= 256"):
+        ops.ssd_scan(*_ssd_inputs(0, 1, 128, 2, 16, 300, dev))
+    with pytest.raises(ValueError, match="launch limit"):
+        ops.ssd_scan(*_ssd_inputs(0, 1, 1, 1 << 16, 96, 8, dev))
     with pytest.raises(ValueError, match="multiple of the chunk"):
         ops.ssd_scan(x[:, :200].contiguous(), a[:, :200].contiguous(),
                      b[:, :200].contiguous(), c[:, :200].contiguous())
@@ -970,6 +972,69 @@ def test_ssd_scan_kernel_refuses_what_it_does_not_take(dev):
         ops.ssd_scan(x.double(), a.double(), b.double(), c.double())
     with pytest.raises(ValueError, match="b, c"):
         ops.ssd_scan(x, a, b, c[..., :8].contiguous())
+
+
+# the mLSTM's heads (xlstm-125m: P = N = 192) take ssd_scan_wide.cu
+
+@pytest.mark.parametrize("PN", [96, 128, 192, 256])
+@pytest.mark.parametrize("S,chunk", [(128, 128), (1024, 128), (256, 32)])
+def test_ssd_scan_wide_kernel_equals_plain(dev, PN, S, chunk):
+    """P = N above the narrow kernel's 64: one chunk (no carried state)
+    and many, chunks of 128 and 32."""
+    x, a, b, c = _ssd_inputs(PN + S + chunk, 2, S, 4, PN, PN, dev)
+    ops.reset_launches()
+    got = ops.ssd_scan(x, a, b, c, chunk=chunk)
+    assert ops.LAUNCHES["ssd_scan"] == 1
+    want = ops.ssd_scan(x, a, b, c, chunk=chunk, backend="torch")
+    assert got.shape == x.shape and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=SSD_TOL, atol=SSD_TOL)
+
+
+@pytest.mark.parametrize("P,N", [(192, 64), (64, 192), (200, 72), (65, 3),
+                                 (130, 250)])
+@pytest.mark.parametrize("chunk", [128, 32])
+def test_ssd_scan_wide_kernel_with_p_unlike_n(dev, P, N, chunk):
+    """P != N, widths that are not multiples of 64 or of 4 (the 4-byte
+    copies), over 4 or 16 chunks."""
+    x, a, b, c = _ssd_inputs(P + N + chunk, 1, 512, 3, P, N, dev)
+    got = ops.ssd_scan(x, a, b, c, chunk=chunk)
+    want = ops.ssd_scan(x, a, b, c, chunk=chunk, backend="torch")
+    torch.testing.assert_close(got, want, rtol=SSD_TOL, atol=SSD_TOL)
+
+
+@pytest.mark.parametrize("B,H", [(1, 1), (2, 4), (4, 16)])
+def test_ssd_scan_wide_kernel_across_heads(dev, B, H):
+    """B H from 1 to 64 heads of 192, with a ragged chunk (S = 96 runs
+    one chunk of Q = S; S = 480 fifteen of 32)."""
+    for S, chunk in ((96, 128), (480, 32)):
+        x, a, b, c = _ssd_inputs(B * H + S, B, S, H, 192, 192, dev)
+        got = ops.ssd_scan(x, a, b, c, chunk=chunk)
+        want = ops.ssd_scan(x, a, b, c, chunk=chunk, backend="torch")
+        torch.testing.assert_close(got, want, rtol=SSD_TOL, atol=SSD_TOL)
+
+
+def test_ssd_scan_narrow_heads_keep_the_narrow_kernel(dev, monkeypatch):
+    """P, N <= 64 launch ssd_scan.cu's kernel and never the wide one; a
+    head of 65 launches the wide one.  The wide library states its
+    maximum, which the wrapper checks against."""
+    assert build.library("ssd_scan_wide").ssd_scan_wide_max_width() == \
+        ops._SSD_WIDE_MAX
+    used = []
+    real = build.library
+
+    def library(name):
+        used.append(name)
+        return real(name)
+
+    monkeypatch.setattr(build, "library", library)
+    for P, N in ((64, 64), (16, 64), (64, 8), (65, 64), (64, 65)):
+        x, a, b, c = _ssd_inputs(P + N, 2, 256, 8, P, N, dev)
+        used.clear()
+        got = ops.ssd_scan(x, a, b, c)
+        wide = P > 64 or N > 64
+        assert used == ["ssd_scan_wide" if wide else "ssd_scan"], (P, N)
+        want = ops.ssd_scan(x, a, b, c, backend="torch")
+        torch.testing.assert_close(got, want, rtol=SSD_TOL, atol=SSD_TOL)
 
 
 @pytest.fixture
@@ -1079,3 +1144,43 @@ def test_moe_forward_on_card_equals_cpu(dev):
                                          use_kernel=True)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-4, atol=1e-4)
+
+
+# ---------- the xLSTM family ----------
+
+
+def test_xlstm_forward_and_engine_on_card_equal_cpu(dev):
+    """The SMOKE xLSTM with 192-wide mLSTM heads (d 384, 2 heads): the
+    kernel path (the wide ssd_scan once an mLSTM block) and the plain path
+    on the card against the CPU run, and the greedy Engine."""
+    from repro_torch.models import registry, transformer
+    from repro_torch.models.decode_engine import Engine, ServeConfig
+    cfg = dataclasses.replace(registry.get("xlstm-125m", smoke=True),
+                              d_model=384)
+    g = torch.Generator()
+    g.manual_seed(0)
+    cpu = transformer.init_params(cfg, g, device="cpu")
+    card = copy.deepcopy(cpu).to(dev)
+    rng = np.random.default_rng(2)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 256)).astype(
+        np.int32))
+    ops.reset_launches()
+    got, _ = transformer.forward(cfg, card, {"tokens": tok.to(dev)},
+                                 use_kernel=True)
+    assert ops.LAUNCHES["ssd_scan"] == cfg.n_layers // 2
+    assert sum(ops.LAUNCHES.values()) == cfg.n_layers // 2
+    plain, _ = transformer.forward(cfg, card, {"tokens": tok.to(dev)})
+    want, _ = transformer.forward(cfg, cpu, {"tokens": tok})
+    assert bool(torch.isfinite(want).all())
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(plain.cpu(), want, rtol=1e-4, atol=1e-4)
+    outs = []
+    for model, where in ((card, dev), (cpu, "cpu")):
+        eng = Engine(cfg, model, ServeConfig(max_len=64), batch_slots=3,
+                     device=where)
+        for p in ([5, 6, 7], [11, 12], list(range(20, 40))):
+            eng.submit(p)
+        ops.reset_launches()
+        outs.append(eng.run(max_new_tokens=40))
+        assert not any(ops.LAUNCHES.values())  # decode: the steps, no scan
+    assert outs[0] == outs[1]

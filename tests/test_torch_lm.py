@@ -275,14 +275,16 @@ def test_entry_points_raise_without_card(lm, monkeypatch):
 def test_unported_families_and_impls_raise(lm, monkeypatch):
     _, _, cfg, model = lm
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.get("xlstm-125m")
+        registry.get("whisper-large-v3")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         registry.get("gemma-7b")
     with pytest.raises(KeyError):
         registry.get("no-such-arch")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.init_params(dataclasses.replace(cfg, family="ssm",
-                                                    xlstm=True),
+        transformer.init_params(dataclasses.replace(cfg, family="encdec"),
+                                device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        transformer.init_params(dataclasses.replace(cfg, frontend="vision"),
                                 device="cpu")
     monkeypatch.setattr(flags, "ATTN_IMPL", "chunked")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -277,6 +277,6 @@ def test_engine_greedy_equals_reference(engine_runs, arch, scenario):
 
 
 def test_unported_families_still_raise():
-    for arch in ("xlstm-125m", "whisper-large-v3"):
+    for arch in ("internvl2-2b", "whisper-large-v3"):
         with pytest.raises(NotImplementedError, match="item 8"):
             registry.get(arch)

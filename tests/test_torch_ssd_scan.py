@@ -15,8 +15,12 @@ at decays where the reference stays finite, and pinned where it does not:
 the reference forms exp(cum[t] - cum[s]) above the diagonal before the
 mask, so a chunk whose decays sum below about -88.7 gives NaN there
 (ROADMAP.md Queue 3), while the port masks before exp and stays equal to
-the sequential oracle.  The Mamba-2 block and its one-token step are held
-to the JAX ones with the same weights.  Tolerance: 2e-4 abs/rel, the
+the sequential oracle.  The same holds at the mLSTM's head width (P = N =
+192, xlstm-125m) and with P != N, where the card runs the wide kernel; a
+float64 model of that kernel's three launches (chunk states, carry,
+output; 64-wide tiles of P and N) is held to the sequential oracle.  The
+Mamba-2 block and its one-token step are held to the JAX ones with the
+same weights.  Tolerance: 2e-4 abs/rel, the
 reference's own Pallas-against-oracle tolerance (`tests/test_kernels.py`):
 the chunked and sequential forms sum in other orders.  The CUDA kernel is
 held to the plain version on the card (`tests/test_torch_kernels_cuda.py`,
@@ -91,6 +95,85 @@ def test_port_equals_chunked_pallas_and_oracles(S, chunk):
     _close(got, pallas_ssd(*jx, chunk=min(chunk, S), interpret=True))
     _close(got, jref.ssd_scan_ref(*jx))
     _close(got, _sequential(x, a, b, c))
+
+
+@pytest.mark.parametrize("P,N", [(192, 192), (192, 64)])
+@pytest.mark.parametrize("S,chunk", [(128, 128), (256, 128), (256, 32)])
+def test_wide_heads_equal_chunked_pallas_and_oracles(S, chunk, P, N):
+    """The mLSTM's 192-wide heads (and P != N): one chunk and many."""
+    x, a, b, c = _inputs(1, S, 2, P, N, seed=P + N + S + chunk)
+    got = _port(x, a, b, c, chunk=chunk)
+    assert got.shape == x.shape
+    jx = [jnp.asarray(v) for v in (x, a, b, c)]
+    _close(got, jssm.ssd_chunked(*jx, chunk=chunk))
+    _close(got, pallas_ssd(*jx, chunk=min(chunk, S), interpret=True))
+    _close(got, _sequential(x, a, b, c))
+
+
+def _wide_kernel_model(x, a, b, c, chunk, W=64):
+    """csrc/ssd_scan_wide.cu's three launches in float64, tile by tile:
+    1. each chunk but the last: its hand-on sum_s exp(cum[T-1] - cum[s])
+       x[s] B[s]^T into states[ch], a (P tile, N tile) at a time, and its
+       total decay exp(cum[T-1]);
+    2. in chunk order, states[ch] <- s, s = total[ch] s + states[ch];
+    3. per (chunk, P tile): G = C B^T summed over the N tiles, masked
+       before exp, and y = exp(cum[t]) C states[ch]^T (over the N tiles)
+       + G x."""
+    x, a, b, c = (torch.as_tensor(np.asarray(v), dtype=torch.float64)
+                  for v in (x, a, b, c))
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    T = min(chunk, S)
+    nc = S // T
+    xq, bq, cq = (v.reshape(B, nc, T, H, -1) for v in (x, b, c))
+    cum = torch.cumsum(a.reshape(B, nc, T, H), dim=2)
+    states = torch.zeros((B, H, nc, P, N), dtype=torch.float64)
+    totals = torch.exp(cum[:, :, -1]).transpose(1, 2)  # [B, H, nc]
+    xt = xq * torch.exp(cum[:, :, -1:] - cum)[..., None]
+    for p0 in range(0, P, W):
+        for n0 in range(0, N, W):
+            states[:, :, :nc - 1, p0:p0 + W, n0:n0 + W] = torch.einsum(
+                "bgshp,bgshn->bhgpn", xt[:, :nc - 1, ..., p0:p0 + W],
+                bq[:, :nc - 1, ..., n0:n0 + W])
+    s = torch.zeros((B, H, P, N), dtype=torch.float64)
+    for ch in range(nc):
+        upd = states[:, :, ch].clone()
+        states[:, :, ch] = s
+        s = totals[:, :, ch, None, None] * s + upd
+    tri = torch.ones((T, T), dtype=torch.bool).tril()
+    y = torch.empty_like(x)
+    for ch in range(nc):
+        expo = cum[:, ch, :, None, :] - cum[:, ch, None, :, :]  # [B,T,T,H]
+        decay = torch.exp(torch.where(tri[:, :, None], expo,
+                                      float("-inf"))).permute(0, 3, 1, 2)
+        for p0 in range(0, P, W):
+            G = torch.zeros((B, H, T, T), dtype=torch.float64)
+            ys = torch.zeros((B, H, T, min(W, P - p0)), dtype=torch.float64)
+            for n0 in range(0, N, W):
+                ct = cq[:, ch, ..., n0:n0 + W]
+                G += torch.einsum("bthn,bshn->bhts", ct,
+                                  bq[:, ch, ..., n0:n0 + W])
+                ys += torch.einsum("bthn,bhpn->bhtp", ct,
+                                   states[:, :, ch, p0:p0 + W, n0:n0 + W])
+            out = ys * torch.exp(cum[:, ch]).transpose(1, 2)[..., None] + \
+                torch.einsum("bhts,bshp->bhtp", G * decay,
+                             xq[:, ch, ..., p0:p0 + W])
+            y[:, ch * T:(ch + 1) * T, :, p0:p0 + W] = out.transpose(1, 2)
+    return y
+
+
+@pytest.mark.parametrize("S,chunk,P,N", [(96, 32, 130, 70), (32, 32, 192, 192),
+                                         (120, 40, 65, 200)])
+def test_wide_kernel_design_equals_the_recurrence(S, chunk, P, N):
+    """The wide kernel's split (chunk states, an ordered carry, then every
+    chunk's output in 64-wide P tiles with C B^T summed over 64-wide N
+    tiles) is the scan: equal to the float64 sequential oracle, one chunk
+    and several, ragged tiles and a chunk that is not a power of two."""
+    x, a, b, c = _inputs(2, S, 2, P, N, seed=S + P + N)
+    model = _wide_kernel_model(x, a, b, c, chunk)
+    torch.testing.assert_close(model, _sequential(x, a, b, c), rtol=1e-9,
+                               atol=1e-9)
+    _close(_port(x, a, b, c, chunk=chunk), model)
 
 
 def test_overflow_of_the_reference_is_pinned():
@@ -172,5 +255,19 @@ def test_mamba2_step_equals_reference_and_block(mixer):
 
 
 def test_xlstm_half_raises():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        ssm.mlstm_block(None, None, None)
+    """The xLSTM half runs (tests/test_torch_xlstm.py) and, like the
+    Mamba-2 half, raises where the reference asserts: a sequence that is
+    not a multiple of min(chunk, S)."""
+    jcfg = jregistry.get("xlstm-125m", smoke=True)
+    p, _ = jssm.mlstm_init(jax.random.PRNGKey(0), jcfg)
+    x = np.random.default_rng(6).standard_normal((1, 96, jcfg.d_model))
+    x = x.astype(np.float32)
+    with pytest.raises(AssertionError):
+        jssm.mlstm_block(p, jnp.asarray(x), jcfg, chunk=64)
+    cfg = registry.get("xlstm-125m", smoke=True)
+    port = ssm.MLSTM(*(torch.tensor(np.asarray(p[n]))
+                       for n in ssm.MLSTM_PARAMS))
+    for use_kernel in (False, True):
+        with pytest.raises(ValueError, match="multiple of the chunk"):
+            ssm.mlstm_block(port, torch.from_numpy(x), cfg, chunk=64,
+                            use_kernel=use_kernel)
