@@ -168,7 +168,11 @@ Steps:
      (ssd_scan against its plain version at the prefill's last call) and
      `ssd_scan_xlstm_long` (the same kernel alone at long_500k's length,
      B 1, S 524,288, H 4, P = N = 192, on the mLSTM's input distribution
-     at init), each within |d| <= 2e-4 + 2e-4 |plain|, timed; the Engine
+     at init), each within |d| <= 2e-4 + 2e-4 |plain|, timed, with the
+     device time of each of the wide kernel's launches (CUDA events around
+     each inside the library's call) and the bytes its design moves
+     (inputs and y once, the carried states written once and read once,
+     apart) beside the bound; the Engine
      serving 8 seeded prompts for 160 greedy steps, prefill against decode
      (<= 1e-3); 32 profiled decode steps; stage times and peak memory.
 
@@ -320,6 +324,7 @@ XLSTM_LOGIT_TOL = 1e-3
 XLSTM_PROFILE_S = 512  # the profiled prefill's length (CUT, below)
 # one call of the wide scan at long_500k's length
 LONG_B, LONG_S, LONG_PLAIN_REPS = 1, 524_288, 3
+WIDE_LAUNCH_REPS = 5  # timed calls of the wide scan's launches a row
 
 
 def log(*a):
@@ -1858,17 +1863,19 @@ def flash_row(row, ops, q, k, v, launches, card, path="lm_prefill"):
 TENSOR_CORE_SASS = (("flash_attention", "flash_bf16_kernel", "HGMMA"),
                     ("flash_attention", "flash_f32_kernel", "HMMA"),
                     ("ssd_scan", "ssd_scan_kernel", "HMMA"),
-                    ("ssd_scan_wide", "ssd_wide_chunk_state_kernel", "HMMA"),
-                    ("ssd_scan_wide", "ssd_wide_output_kernel", "HMMA"))
+                    ("ssd_scan_wide", "ssd_wide_state_kernel", "HGMMA"),
+                    ("ssd_scan_wide", "ssd_wide_output_kernel", "HGMMA"))
 
 
 def tensor_core_report(build):
     """Registers and spills (-Xptxas -v) of every kernel, and the
     tensor-core instructions of the flash_attention and ssd_scan kernels
     in the built SASS (cuobjdump -sass): HGMMA (wgmma) in the bf16 flash
-    kernel, HMMA (mma.sync) in the fp32 flash kernel, ssd_scan and the
-    wide ssd_scan's two product kernels.  Fails if a kernel lacks its
-    tensor-core instructions."""
+    kernel and the wide ssd_scan's two product kernels, HMMA (mma.sync)
+    in the fp32 flash kernel and ssd_scan.  Fails if a kernel lacks its
+    tensor-core instructions, or if one of the lookup, walk, chase or wide
+    ssd_scan kernels spills or keeps a stack frame (sw_extend and
+    seed_probe: spills only)."""
     def short(fn):  # the kernel's name and template arguments
         m = re.search(r"(\w+_kernel(<[^>]*>)?)\(", fn)
         return m.group(1) if m else fn
@@ -1880,7 +1887,8 @@ def tensor_core_report(build):
             f"{rep.get('spill_stores', 0)} bytes spill stores, "
             f"{rep.get('spill_loads', 0)} bytes spill loads")
     # the alignment kernels keep a read's seeds and a DP row in registers;
-    # the lookup, walk and chase kernels hold their probes in registers.
+    # the lookup, walk and chase kernels hold their probes in registers,
+    # the wide ssd_scan's its wgmma accumulators and fragments.
     # Each must be in the report: a name is matched where no letter comes
     # before it, so a mangled one (`_ZN..13lookup_kernel..`) counts too.
     def named(kernel):
@@ -1888,7 +1896,8 @@ def tensor_core_report(build):
                 if re.search(rf"(?<![A-Za-z_]){kernel}_kernel", fn)]
 
     checked = {k: named(k) for k in ("sw_extend", "seed_probe", "lookup",
-                                     "mer_walk", "chase")}
+                                     "mer_walk", "chase", "ssd_wide_state",
+                                     "ssd_wide_carry", "ssd_wide_output")}
     missing = [k for k, fns in checked.items() if not fns]
     if missing:
         raise AssertionError(f"no ptxas report for the kernels {missing}")
@@ -2247,7 +2256,8 @@ def ssd_row(ops, x, a, b, c, launches, card, row="ssd_scan",
     is no library yardstick.  Heads of P or N > 64 run the wide kernel,
     whose source the row names."""
     source, replaces = KERNELS["ssd_scan"]
-    if x.shape[-1] > 64 or b.shape[-1] > 64:
+    wide = x.shape[-1] > 64 or b.shape[-1] > 64
+    if wide:
         source = SSD_WIDE_SOURCE
     got = ops.ssd_scan(x, a, b, c)
     want = ops.ssd_scan(x, a, b, c, backend="torch")
@@ -2282,11 +2292,81 @@ def ssd_row(ops, x, a, b, c, launches, card, row="ssd_scan",
         f"{nbytes / 1e6:.0f} MB; {flops / 1e9:.2f} GFLOP at "
         f"{TENSOR_TF32X3_OPS_PER_S / 1e12:.0f} TFLOP/s take {t_ops:.4f} ms); "
         f"fp32 SIMT bound {simt_ms:.4f} ms ({simt_by}); {card}")
-    return dict(
+    rec = dict(
         name=row, route="cuda", source=source, replaces=replaces,
         launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         path=path, dtype="float32", simt_bound_ms=simt_ms)
+    if wide:
+        rec.update(ssd_wide_parts(x, a, b, c, row, nbytes, card))
+    return rec
+
+
+def ssd_wide_parts(x, a, b, c, row, nbytes, card) -> dict:
+    """The wide ssd_scan's time by launch (state runs, run carry, output:
+    CUDA events around each launch inside the library's call, the median
+    of WIDE_LAUNCH_REPS calls after a warm-up; the profiler drops these
+    launches' records late in a run) and the bytes its design moves: x, a,
+    b, c and y once, the carried states [B, H, nc, P, N] written once by
+    the state launch and read once by the output launch, and apart from
+    those the run-start states the output launch rereads (an L2 hit for
+    all but the first chunk of a run) and the carry's two passes over the
+    run-start slots.  The byte floor is the bytes that must move (inputs,
+    y, the states once each way) over the card's memory rate; the bound
+    stays the operations bound of ssd_row."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    T = min(128, S)
+    nc = S // T
+    if P % 64 or N % 64 or any(t.data_ptr() % 16 for t in (x, b, c)):
+        raise AssertionError(f"{row}: the timed launch takes whole 64-wide "
+                             f"tiles and aligned data, got P={P}, N={N}")
+    lib = build.library("ssd_scan_wide")
+    R = lib.ssd_scan_wide_run_length(B, H, P, N, nc)
+    slot = 4 * P * N  # one state, bytes
+    states = B * H * (nc - 1) * slot  # written once, read once
+    runs = -(-(nc - 1) // R) if nc > 1 else 0
+    rereads = B * H * sum(1 for ch in range(1, nc)
+                          if ch > R and ch % R) * slot
+    carry = 2 * B * H * max(runs - 1, 0) * slot
+    floor_bytes = nbytes + 2 * states
+    floor_ms = floor_bytes / HBM_BYTES_PER_S * 1e3
+    y = torch.empty_like(x)
+    scratch = torch.empty((B, H, nc, P, N), dtype=torch.float32,
+                          device=x.device)
+    totals = torch.empty((B, H, nc), dtype=torch.float32, device=x.device)
+    ms = (ctypes.c_float * 3)()
+    names = ("ssd_wide_state_kernel", "ssd_wide_carry_kernel",
+             "ssd_wide_output_kernel")
+    times = []
+    for _ in range(WIDE_LAUNCH_REPS + 1):
+        err = lib.ssd_scan_wide_launch(
+            x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+            y.data_ptr(), scratch.data_ptr(), totals.data_ptr(), B, S, H, P,
+            N, T, torch.cuda.current_stream().cuda_stream, ms)
+        if err:
+            raise RuntimeError(f"{row}: timed launch failed: "
+                               f"{lib.repro_error_string(err).decode()}")
+        times.append(list(ms))
+    launch_ms = {k: float(np.median([t[i] for t in times[1:]]))
+                 for i, k in enumerate(names)}
+    del y, scratch, totals
+    log(f"{row} by launch (device ms, CUDA events, median of "
+        f"{WIDE_LAUNCH_REPS} calls): " + "; ".join(
+            f"{k} {v:.4f}" for k, v in launch_ms.items())
+        + f"; sum {sum(launch_ms.values()):.4f}")
+    log(f"{row} bytes of the design: inputs and y {nbytes / 1e6:.1f} MB, "
+        f"carried states {states / 1e6:.1f} MB written + "
+        f"{states / 1e6:.1f} MB read (run length R {R}, {runs} runs), "
+        f"run-start rereads {rereads / 1e6:.1f} MB, carry "
+        f"{carry / 1e6:.1f} MB; byte floor {floor_bytes / 1e6:.1f} MB, "
+        f"{floor_ms:.4f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; {card}")
+    return dict(launch_ms=launch_ms, run_length=R,
+                state_bytes=2 * states, byte_floor_ms=floor_ms)
 
 
 def phase_hybrid(ops, card):

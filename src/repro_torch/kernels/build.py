@@ -74,7 +74,8 @@ SIGNATURES = {
     },
     "ssd_scan_wide": {
         "ssd_scan_wide_max_width": [],
-        "ssd_scan_wide_launch": [_P] * 7 + [_I] * 6 + [_P],
+        "ssd_scan_wide_run_length": [_I] * 5,
+        "ssd_scan_wide_launch": [_P] * 7 + [_I] * 6 + [_P, _P],
     },
     # no kernel of the port: the walk's latency bound (chip_smoke.py)
     "latency_probe": {

@@ -64,14 +64,28 @@
 // runs a long HMMA chain into one accumulator: S keeps its small terms
 // apart from a_hi b_hi (one HMMA a k-step into each score), and each key
 // tile's P V is added to O, rescaled by alpha, with an fp32 FMA.
-#include <cuda.h>  // CUtensorMap and its enums; the driver entry point is
-                   // fetched at run time, so no libcuda at link time
 #include <cuda_bf16.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 #include "tf32.cuh"
 
 namespace {
+
+using repro::EncodeTiled;
+using repro::encode_tiled;
+using repro::fence_regs;
+using repro::mbar_arrive;
+using repro::mbar_expect_tx;
+using repro::mbar_init;
+using repro::mbar_wait;
+using repro::smem_desc;
+using repro::smem_u32;
+using repro::tensor_map;
+using repro::tma_load_3d;
+using repro::wgmma_commit;
+using repro::wgmma_fence;
+using repro::wgmma_wait_all;
 
 constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;  // softmax in base 2: exp2
@@ -280,93 +294,6 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------- bf16
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// returns once the barrier's phase of this parity has completed; a wait
-// that never ends (a copy that never lands) traps instead of hanging
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (long long i = 0; !mbar_try(bar, parity); ++i)
-    if (i == (1ll << 28)) __trap();
-}
-
-__device__ __forceinline__ void tma_load_3d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle (layout type 1).  K-major
-// operands ignore lbo; sbo is the 1024 bytes from one 8-row group to the
-// next.  The MN-major V takes lbo = the bytes between 64-column blocks.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of wgmma accumulators
-// across the asynchronous wgmma and its wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define WG_D8(i)                                                        \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define WG_D32(i) WG_D8(i), WG_D8(i + 8), WG_D8(i + 16), WG_D8(i + 24)
-#define WG_D64(i) WG_D32(i), WG_D32(i + 32)
-#define WG_D128(i) WG_D64(i), WG_D64(i + 64)
 
 // D[64 x 64] (+)= A[64 x 16] B[16 x 64]; A, B K-major in shared memory
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
@@ -705,40 +632,16 @@ int launch_f32_d(const void* q, const void* k, const void* v, void* out,
   }
 }
 
-// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // [Z, S, D] bf16 as a 3-D tensor map with boxes of 64 columns x rows x 1,
 // 128-byte swizzle; past D and past S the box is zero-filled
-bool tensor_map(CUtensorMap* map, EncodeTiled enc, const void* ptr, int Z,
-                int S, int D, int rows) {
+bool bf16_map(CUtensorMap* map, EncodeTiled enc, const void* ptr, int Z,
+              int S, int D, int rows) {
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)Z};
   const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
                                  (cuuint64_t)S * (cuuint64_t)D * 2};
   const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return tensor_map(map, enc, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, 3, dims,
+                    strides, box);
 }
 
 template <int DP>
@@ -749,9 +652,9 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
-  if (!tensor_map(&tq, enc, q, B * H, S, D, Cfg::kRows) ||
-      !tensor_map(&tk, enc, k, B * KH, S, D, Cfg::kBN) ||
-      !tensor_map(&tv, enc, v, B * KH, S, D, Cfg::kBN))
+  if (!bf16_map(&tq, enc, q, B * H, S, D, Cfg::kRows) ||
+      !bf16_map(&tk, enc, k, B * KH, S, D, Cfg::kBN) ||
+      !bf16_map(&tv, enc, v, B * KH, S, D, Cfg::kBN))
     return (int)cudaErrorInvalidValue;
   auto kern = flash_bf16_kernel<DP>;
   cudaError_t e = cudaFuncSetAttribute(

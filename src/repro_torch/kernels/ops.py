@@ -458,8 +458,9 @@ def ssd_scan(x, a, b, c, *, chunk: int = 128, backend=None):
     The chunk is Q = min(chunk, S) and S must be a multiple of it, on both
     paths.  The kernels take contiguous fp32 tensors with Q <= 128:
     `ssd_scan.cu` heads of P, N <= 64 (zamba2's), `ssd_scan_wide.cu` the
-    wider ones up to P, N <= 256 (the mLSTM's 192) with B H <= 65535; a
-    wider head raises.
+    wider ones up to P, N <= 256 (the mLSTM's 192) with B H <= 65535, in
+    whole 64-wide tiles (a head of other widths, or unaligned data, runs
+    on a zero-padded copy); a wider head raises.
     """
     if x.dim() != 4:
         raise ValueError(f"ssd_scan: x must be [B, S, H, P], got "
@@ -490,14 +491,32 @@ def ssd_scan(x, a, b, c, *, chunk: int = 128, backend=None):
         lib = build.library("ssd_scan")
         err = lib.ssd_scan_launch(_ptr(x), _ptr(a), _ptr(b), _ptr(c),
                                   _ptr(y), B, S, H, P, N, Q, _stream(dev))
-    else:  # the chunks' carried states, fp32 [B, H, S / Q, P, N]
-        nc = S // Q
-        states = torch.empty((B, H, nc, P, N), dtype=torch.float32,
+    else:
+        # the wide kernel takes P and N in whole 64-wide tiles and 16-byte
+        # aligned rows: other heads go in zero-padded (zero columns of x,
+        # b and c add nothing to y) and y is cut back
+        P64, N64 = -(-P // 64) * 64, -(-N // 64) * 64
+        xk, bk, ck = _padded(x, P64), _padded(b, N64), _padded(c, N64)
+        yk = y if P64 == P else x.new_empty((B, S, H, P64))
+        nc = S // Q  # the chunks' carried states, fp32
+        states = torch.empty((B, H, nc, P64, N64), dtype=torch.float32,
                              device=dev)
         totals = torch.empty((B, H, nc), dtype=torch.float32, device=dev)
         lib = build.library("ssd_scan_wide")
         err = lib.ssd_scan_wide_launch(
-            _ptr(x), _ptr(a), _ptr(b), _ptr(c), _ptr(y), _ptr(states),
-            _ptr(totals), B, S, H, P, N, Q, _stream(dev))
+            _ptr(xk), _ptr(a), _ptr(bk), _ptr(ck), _ptr(yk), _ptr(states),
+            _ptr(totals), B, S, H, P64, N64, Q, _stream(dev), None)
+        if yk is not y:
+            y = yk[..., :P].contiguous()
     _launched("ssd_scan", lib, err)
     return y
+
+
+def _padded(t: torch.Tensor, width: int) -> torch.Tensor:
+    """t, or a zero-padded copy of it whose last dim is `width`, where t's
+    is narrower or its data is not 16-byte aligned."""
+    if t.shape[-1] == width and t.data_ptr() % 16 == 0:
+        return t
+    out = t.new_zeros(t.shape[:-1] + (width,))
+    out[..., :t.shape[-1]] = t
+    return out

@@ -1013,6 +1013,77 @@ def test_ssd_scan_wide_kernel_across_heads(dev, B, H):
         torch.testing.assert_close(got, want, rtol=SSD_TOL, atol=SSD_TOL)
 
 
+def _wide_against_plain(x, a, b, c, chunk):
+    ops.reset_launches()
+    got = ops.ssd_scan(x, a, b, c, chunk=chunk)
+    assert ops.LAUNCHES["ssd_scan"] == 1
+    want = ops.ssd_scan(x, a, b, c, chunk=chunk, backend="torch")
+    assert got.shape == x.shape and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=SSD_TOL, atol=SSD_TOL)
+
+
+@pytest.mark.parametrize("P,N", [(65, 65), (136, 200), (200, 136),
+                                 (256, 256), (192, 256), (65, 256)])
+@pytest.mark.parametrize("chunk", [32, 64, 128])
+def test_ssd_scan_wide_kernel_widths_off_its_tiles(dev, P, N, chunk):
+    """P or N not a multiple of the kernel's 64-wide tiles (the wrapper
+    pads them with zeros), P != N, and every chunk the tiles cut: 32 and
+    64 (one warpgroup of rows) and 128 (two), over 8 to 32 chunks."""
+    x, a, b, c = _ssd_inputs(P * N + chunk, 1, 1024, 2, P, N, dev)
+    _wide_against_plain(x, a, b, c, chunk)
+
+
+@pytest.mark.parametrize("S,chunk", [(128, 128), (64, 64), (32, 32),
+                                     (100, 128)])
+def test_ssd_scan_wide_kernel_one_chunk(dev, S, chunk):
+    """One chunk: no state launch, the output launch alone (S = 100 runs
+    one ragged chunk of Q = S)."""
+    x, a, b, c = _ssd_inputs(S + chunk, 2, S, 3, 192, 192, dev)
+    _wide_against_plain(x, a, b, c, chunk)
+
+
+def test_ssd_scan_wide_kernel_runs_and_carry(dev):
+    """Many chunks a (b, h): the state launch walks runs of R chunks and
+    the carry crosses the runs; a chunk count whose hand-ons (nc - 1) are
+    not a multiple of R leaves a short last run, whose partial states the
+    output launch corrects with the carried run-start state."""
+    lib = build.library("ssd_scan_wide")
+    for nc in (40, 67, 101):
+        R = lib.ssd_scan_wide_run_length(1, 1, 192, 192, nc)
+        runs = -(-(nc - 1) // R)
+        if R > 1 and runs > 1 and (nc - 1) % R:
+            break
+    else:
+        pytest.fail("no chunk count gives several runs with a short last "
+                    "one")
+    x, a, b, c = _ssd_inputs(nc, 1, nc * 128, 1, 192, 192, dev)
+    _wide_against_plain(x, a, b, c, 128)
+
+
+@pytest.mark.parametrize("B,H", [(1, 1), (8, 8)])
+def test_ssd_scan_wide_kernel_one_and_64_heads(dev, B, H):
+    """B H = 1 (the runs fill the card) and B H = 64 (one run a head)."""
+    x, a, b, c = _ssd_inputs(B * H, B, 1024, H, 192, 192, dev)
+    _wide_against_plain(x, a, b, c, 128)
+
+
+@pytest.mark.parametrize("off", [1, 2, 3])
+def test_ssd_scan_wide_kernel_unaligned_data(dev, off):
+    """x, a, b and c whose data_ptr is not 16-byte aligned (views 4, 8 or
+    12 bytes into a buffer): the wrapper hands the kernel aligned copies."""
+    x, a, b, c = _ssd_inputs(off, 1, 512, 3, 192, 192, dev)
+
+    def shifted(t):
+        buf = torch.zeros(t.numel() + off, device=dev)
+        v = buf[off:].view(t.shape)
+        v.copy_(t)
+        return v
+
+    xs, as_, bs, cs = (shifted(t) for t in (x, a, b, c))
+    assert all(t.data_ptr() % 16 for t in (xs, bs, cs))
+    _wide_against_plain(xs, as_, bs, cs, 128)
+
+
 def test_ssd_scan_narrow_heads_keep_the_narrow_kernel(dev, monkeypatch):
     """P, N <= 64 launch ssd_scan.cu's kernel and never the wide one; a
     head of 65 launches the wide one.  The wide library states its

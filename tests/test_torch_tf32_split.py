@@ -19,6 +19,13 @@ a few k-steps at a time into a fresh accumulator (tf32.cuh), and are held
 to their plain versions on the card (`test_torch_kernels_cuda.py`, and
 `chip_smoke.py` at the main paths' calls).
 
+The wide scan's kernel (`csrc/ssd_scan_wide.cu`, wgmma) has its own order:
+each product's k axis in 32-deep atoms, a fresh accumulator each (4
+k-steps), summed by fp32 adds; the state walked over runs of chunks and
+carried across them.  `ssd_wide` emulates that order at the mLSTM's heads
+(P = N = 192, T = 128) with the tensor core's accumulator modelled as
+rounding toward zero, and is held to float64 and to the plain fp32 scan.
+
 Torch and numpy only: no JAX, a few seconds.
 """
 import numpy as np
@@ -190,3 +197,122 @@ def test_ssd_products_need_the_split(ties, S, T, P, N):
     got = {name: ssd(x, a, b, c, mm, ties, T)
            for name, mm in PRODUCTS.items()}
     _check(got, want, SSD_TOL)
+
+
+# ---------------------------------------------------------------- wide
+
+ATOM = 32  # the k depth of one fresh wgmma chain in ssd_scan_wide.cu
+
+
+def rtz(v: torch.Tensor) -> torch.Tensor:
+    """float64 -> float32, rounded toward zero."""
+    r = v.float()
+    return torch.where(r.double().abs() > v.abs(),
+                       torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def chain(a, b, into=None):
+    """into + a @ b as ssd_scan_wide.cu forms it: the k axis in 32-deep
+    atoms, each a fresh accumulator of 4 k-steps of a_lo b_hi, a_hi b_lo,
+    a_hi b_hi (tf32.cuh's split on both operands), each step's 8 products
+    exact and added to the fp32 accumulator rounded toward zero (the
+    tensor core's accumulator); the atoms added to `into` one by one in
+    IEEE fp32."""
+    ahi, alo = split(a, "kernel")
+    bhi, blo = split(b, "kernel")
+    out = into
+    for a0 in range(0, a.shape[-1], ATOM):
+        acc = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float64)
+        for k0 in range(a0, min(a0 + ATOM, a.shape[-1]), K_STEP):
+            ks = slice(k0, k0 + K_STEP)
+            for u, v in ((alo, bhi), (ahi, blo), (ahi, bhi)):
+                acc = rtz(acc + u[..., ks].double() @ v[..., ks, :].double()
+                          ).double()
+        out = acc.float() if out is None else out + acc.float()
+    return out
+
+
+def fmaf(u, v, w):
+    """u v + w rounded once to fp32."""
+    return (u.double() * v.double() + w.double()).float()
+
+
+def ssd_wide(x, a, b, c, T, R):
+    """ssd_scan_wide.cu's arithmetic for one (b, h): x [S, P], a [S], b, c
+    [S, N].  The state launch walks runs of R chunks from zero, the state
+    [N][P] scaled by exp(cum[T-1]) then each 32-row atom's (B tail)^T x
+    added, writing the partial state entering each chunk and the decay
+    since the run's start; the carry turns each run's first slot into the
+    true state; the output forms G = mask(C B^T) exp(cum[t] - cum[s]) over
+    the N atoms, then y = exp(cum[t]) (C state^T over the N atoms) + G x
+    over the s atoms, the state being the partial one plus the decay times
+    its run's first slot."""
+    S, P = x.shape
+    N = b.shape[-1]
+    nc = S // T
+    tri = torch.ones((T, T), dtype=torch.bool).tril()
+    cums = [torch.cumsum(a[ch * T:(ch + 1) * T].double(), 0)
+            for ch in range(nc)]
+    states, decs = [None] * nc, [None] * nc
+    for r0 in range(0, nc - 1, R):  # the state launch, one run at a time
+        st = torch.zeros((N, P), dtype=torch.float32)
+        dec = torch.ones((), dtype=torch.float32)
+        for ch in range(r0, min(r0 + R, nc - 1)):
+            cum = cums[ch]
+            tot = torch.exp(cum[-1].float())
+            tail = torch.exp((cum[-1] - cum).float())
+            st, dec = st * tot, dec * tot
+            bt = (b[ch * T:(ch + 1) * T] * tail[:, None]).T.contiguous()
+            st = chain(bt, x[ch * T:(ch + 1) * T], into=st)
+            states[ch + 1], decs[ch + 1] = st.T.contiguous(), dec
+    E = torch.zeros((P, N), dtype=torch.float32)
+    for c0 in range(R, nc, R):  # the carry over the runs
+        E = fmaf(decs[c0], E, states[c0])
+        states[c0] = E
+    ys = []
+    for ch in range(nc):  # the output launch
+        cum = cums[ch]
+        cs, xs = c[ch * T:(ch + 1) * T], x[ch * T:(ch + 1) * T]
+        expo = torch.where(tri, (cum[:, None] - cum[None, :]).float(),
+                           torch.tensor(float("-inf")))
+        g = chain(cs, b[ch * T:(ch + 1) * T].T.contiguous())
+        g = torch.where(tri, g * torch.exp(expo), torch.zeros(()))
+        y = torch.zeros((T, P), dtype=torch.float32)
+        if ch > 0:
+            st = states[ch]
+            if ch > R and ch % R:
+                st = fmaf(decs[ch], states[ch // R * R], st)
+            y = chain(cs, st.T.contiguous())
+        y = y * torch.exp(cum.float())[:, None]
+        ys.append(chain(g, xs, into=y))
+    return torch.cat(ys)
+
+
+def test_wide_kernel_order_holds_the_tolerance():
+    """The mLSTM's heads (P = N = 192, T = 128) over 4 chunks in runs of
+    2 (a partial state, a carried one and a corrected one), inputs drawn
+    as chip_smoke.py draws long_500k's call: x = v sigmoid(i), a = log
+    sigmoid(f), b = k, c = q / sqrt(P).  The kernel's order is within 2e-4
+    of float64 and within 2x of the plain fp32 scan's distance to it."""
+    rng = np.random.default_rng(192)
+    S, T, P, N, R = 512, 128, 192, 192, 2
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32))
+
+    x = randn(S, P) * torch.sigmoid(randn(S))[:, None]
+    a = torch.nn.functional.logsigmoid(randn(S))
+    b = randn(S, N)
+    c = randn(S, N) / N ** 0.5
+    want = ssd(x.double(), a.double(), b.double(), c.double(), mm_f64,
+               "kernel", T)
+    got = ssd_wide(x, a, b, c, T, R)
+    plain = ssd(x, a, b, c, mm_fp32, "kernel", T)
+    err = float((got.double() - want).abs().max())
+    err32 = float((plain.double() - want).abs().max())
+    used = float(((got.double() - want).abs()
+                  / (SSD_TOL + SSD_TOL * want.abs())).max())
+    assert used <= 1, f"the wide kernel's order misses 2e-4: {used}"
+    assert err <= 2 * err32, f"max abs errors: kernel order {err}, " \
+        f"fp32 {err32}"
