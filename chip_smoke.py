@@ -6,9 +6,11 @@ Drives the port's assembly paths on one virome-like community (under
 `Local`, paths 1-3, under `Mesh(8)`, path 6, and as jobs of the
 assembly `JobServer`, path 7): 24 genomes of 10-30 kbp (4 of them
 1%-divergent strains), 150k reads of 2 x 150 bp at ~45x mean coverage,
-and its four LM serving paths at full width with random fp32 weights:
+and its LM serving paths at full width with random fp32 weights:
 llama3.2-3b (path 4), the hybrid zamba2-7b (path 5), the MoE
-qwen2-moe-a2.7b (path 8) and xlstm-125m (path 9).  The community is sized
+qwen2-moe-a2.7b (path 8), xlstm-125m (path 9), the enc-dec
+whisper-large-v3 (path 10) and the prefills of gemma-7b, starcoder2-3b,
+chatglm3-6b and the vlm internvl2-2b (path 11).  The community is sized
 so the first round's traversal fits the contig_cap of 4096 that the
 reference's (contig, mer) tag space allows with the (17, 21, 25) walk
 ladder: with 40 genomes (+4 strains) and 240k reads that traversal finds
@@ -174,7 +176,42 @@ Steps:
      (inputs and y once, the carried states written once and read once,
      apart) beside the bound; the Engine
      serving 8 seeded prompts for 160 greedy steps, prefill against decode
-     (<= 1e-3); 32 profiled decode steps; stage times and peak memory.
+     (<= 1e-3); 32 profiled decode steps; stage times and peak memory;
+  14. path 10, the enc-dec serving path: whisper-large-v3 (32 encoder and
+     32 decoder layers, d_model 1280, 20 heads of 64, learned positions;
+     2,106,242,560 parameters, the reference's init_params leaves) built
+     on the card from a seeded torch.Generator; `encdec.forward(
+     use_kernel=True)` on input_specs(prefill_32k) cut to B = 2: frames
+     [2, 1500, 1280] and tokens [2, 4096], counts reset just before and
+     read just after: flash_attention once a decoder layer (32) and no
+     other kernel; the plain path against it (max abs logit difference
+     <= 1e-3, argmax); `encode` once more under ATTN_IMPL="flash": 32
+     non-causal launches at S = 1500, its states against the naive
+     encoder's (<= 1e-3); `decode_step` with `encode`'s output written
+     into the fp32 state against the teacher-forced forward at each of the
+     first 64 positions (<= 1e-3); the rows `flash_attention_whisper`
+     (the last decoder layer's call) and `flash_attention_whisper_enc`
+     (the last encoder layer's, non-causal), fp32 and bf16, SDPA as
+     library_ms; the Engine serving 8 seeded prompts for 160 greedy steps
+     after the caller writes `encode` of 8 seeded frame sets into its
+     `enc_out` (the engine takes no audio), prefill against decode
+     (<= 1e-3); 8 profiled decode steps; stage times and peak memory;
+  15. path 11, the registry's last dense and vlm architectures, one after
+     another, each freed before the next: gemma-7b (28 layers, 16 heads of
+     256 over d_model 3072, GeGLU, tied), starcoder2-3b (30 layers, 24
+     heads over 2 KV heads of 128), chatglm3-6b (28 layers, 32 heads over
+     2 KV heads of 128, rotary on half of each head) and internvl2-2b (24
+     layers, the stub vision frontend's 256 rows prepended to 3840
+     tokens), each at full width (the reference's init_params leaves)
+     from a seeded torch.Generator; `forward(use_kernel=True)` on
+     input_specs of 2 x 4096, counts reset just before and read just
+     after: flash_attention once a layer (28 / 30 / 28 / 24) and no other
+     kernel; the plain path against it (<= 1e-3, argmax); starcoder2's
+     prefill once more under ATTN_IMPL="chunked" (512 x 512 blocks in
+     plain torch) against the naive path (<= 1e-3); gemma's once more
+     under torch.profiler; the rows `flash_attention_<model>` and `_bf16`
+     at each model's last call (D 256; GQA 12:1; GQA 16:1; 16 heads over
+     8), SDPA as library_ms; stage times and peak memory.
 
 Every profiled run also prints each of the eight ops' device time and
 kernel count (the profiler's kernels summed by the library each op
@@ -253,6 +290,8 @@ PATH4_KERNELS = ("flash_attention",)
 PATH5_KERNELS = ("ssd_scan", "flash_attention")
 PATH8_KERNELS = ("flash_attention",)
 PATH9_KERNELS = ("ssd_scan",)
+PATH10_KERNELS = ("flash_attention",)
+PATH11_KERNELS = ("flash_attention",)
 # the wide ssd_scan (heads of P or N > 64): its own source, the same op
 SSD_WIDE_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan_wide.cu"
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
@@ -325,6 +364,27 @@ XLSTM_PROFILE_S = 512  # the profiled prefill's length (CUT, below)
 # one call of the wide scan at long_500k's length
 LONG_B, LONG_S, LONG_PLAIN_REPS = 1, 524_288, 3
 WIDE_LAUNCH_REPS = 5  # timed calls of the wide scan's launches a row
+# path 10, the enc-dec family
+WHISPER_ARCH = "whisper-large-v3"
+WHISPER_SEED = 31
+# the leaves of the reference's init_params at full width (its analytic
+# param_count() says 1,810,498,560: it leaves out the cross-attentions,
+# both position tables, the norms and the vocabulary pad)
+WHISPER_PARAMS = 2_106_242_560
+# fp32 logits (and encoder states) of two fp32 paths through 32 encoder
+# and 32 decoder layers; decode against the teacher-forced forward
+WHISPER_TOL = 1e-3
+WHISPER_DECODE_STEPS = 64
+# path 11, the registry's last dense and vlm architectures: the leaves of
+# the reference's init_params at full width (its param_count() leaves out
+# the norms, and internvl2's frontend projection and vocabulary pad)
+DENSE_ARCHS = {"gemma-7b": (37, 8_537_680_896),
+               "starcoder2-3b": (41, 4_312_980_480),
+               "chatglm3-6b": (43, 6_243_454_976),
+               "internvl2-2b": (47, 1_893_369_856)}
+DENSE_LOGIT_TOL = 1e-3
+CHUNKED_ARCH = "starcoder2-3b"  # its prefill runs once more under "chunked"
+PROFILED_ARCH = "gemma-7b"  # its prefill runs once more under the profiler
 
 
 def log(*a):
@@ -1811,14 +1871,15 @@ def phase_serving(api, ops, reads, path2, path3, path6a, small, small_stream,
     log(f"path 7: {time.perf_counter() - t_path:.1f} s")
 
 
-def flash_row(row, ops, q, k, v, launches, card, path="lm_prefill"):
+def flash_row(row, ops, q, k, v, launches, card, path="lm_prefill",
+              causal=True):
     """flash_attention against its plain version at the path's call:
     within the tests' tolerance (|d| <= tol + tol |plain|), timed, with the
     SDPA call of the same shape and dtype as the library yardstick."""
     source, replaces = KERNELS["flash_attention"]
     tol = FLASH_TOL[q.dtype]
-    got = ops.flash_attention(q, k, v)
-    want = ops.flash_attention(q, k, v, backend="torch")
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = ops.flash_attention(q, k, v, causal=causal, backend="torch")
     d = (got.float() - want.float()).abs()
     err = float(d.max())
     used = float((d / (tol + tol * want.float().abs())).max())
@@ -1826,22 +1887,25 @@ def flash_row(row, ops, q, k, v, launches, card, path="lm_prefill"):
         raise AssertionError(f"{row}: kernel != plain version (max abs err "
                              f"{err}, tolerance {tol})")
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_err = float((sdpa(q, k, v, is_causal=True, enable_gqa=True).float()
+    lib_err = float((sdpa(q, k, v, is_causal=causal, enable_gqa=True).float()
                      - want.float()).abs().max())
     del got, want, d
-    ms = median_ms(lambda: ops.flash_attention(q, k, v))
-    plain_ms = median_ms(lambda: ops.flash_attention(q, k, v, backend="torch"))
-    library_ms = median_ms(lambda: sdpa(q, k, v, is_causal=True,
+    ms = median_ms(lambda: ops.flash_attention(q, k, v, causal=causal))
+    plain_ms = median_ms(lambda: ops.flash_attention(q, k, v, causal=causal,
+                                                     backend="torch"))
+    library_ms = median_ms(lambda: sdpa(q, k, v, is_causal=causal,
                                         enable_gqa=True))
     B, H, S, D = q.shape
-    flops = 4 * B * H * D * S * (S + 1) // 2  # causal pairs
+    pairs = S * (S + 1) // 2 if causal else S * S
+    flops = 4 * B * H * D * pairs
     nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
     fp32 = q.dtype == torch.float32
     rate = TENSOR_TF32X3_OPS_PER_S if fp32 else TENSOR_BF16_OPS_PER_S
     b_ms, b_by = bound_of(nbytes, flops, rate)
     simt_ms = bound_of(nbytes, flops, SCALAR_OPS_PER_S)[0]
     simt = f"; fp32 SIMT bound {simt_ms:.4f} ms" if fp32 else ""
-    log(f"{row}: q {list(q.shape)}, k/v {list(k.shape)}, {q.dtype}, causal; "
+    log(f"{row}: q {list(q.shape)}, k/v {list(k.shape)}, {q.dtype}, "
+        f"{'causal' if causal else 'non-causal'}; "
         f"max abs err {err:.3g} against plain, {used:.3f} of the tolerance "
         f"|d| <= {tol} + {tol} |plain|; kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms "
@@ -1852,7 +1916,7 @@ def flash_row(row, ops, q, k, v, launches, card, path="lm_prefill"):
         name=row, route="cuda", source=source, replaces=replaces,
         launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
-        path=path, dtype=str(q.dtype).replace("torch.", ""))
+        path=path, dtype=str(q.dtype).replace("torch.", ""), causal=causal)
     if fp32:
         rec["simt_bound_ms"] = simt_ms
     return rec
@@ -1957,17 +2021,24 @@ def compare_logits(got, want, tol, what):
 
 
 def serve_and_check(cfg, model, ops, card, stages, weights, seed, path,
-                    tol, routing=None):
+                    tol, routing=None, frames=None, profile_steps=32):
     """The decode Engine serves SERVE_SLOTS seeded prompts of PROMPT_LENS
     tokens for SERVE_NEW_TOKENS greedy steps (steps/s, tokens/s, ms a step
     against the weight-read floor), launching no kernel; then a prefill of
     the same prompts through the kernel path against each slot's first
     decode logits (max abs difference <= tol; the argmax is the first
     emitted token wherever the top-2 gap exceeds twice the difference);
-    then 32 decode steps under torch.profiler.  The engine must run every
-    one of the steps."""
-    from repro_torch.models import transformer
+    then `profile_steps` decode steps under torch.profiler.  The engine
+    must run every one of the steps.  An enc-dec model takes `frames` [SERVE_SLOTS, Sa, d]:
+    the caller's part, `encode(frames)` written into the engine's
+    `enc_out` before it runs (the engine takes no audio), and the frames
+    beside the prompts in the prefill."""
+    from repro_torch.models import encdec, registry
     from repro_torch.models.decode_engine import Engine, ServeConfig
+
+    def hear(eng):
+        if frames is not None:
+            eng.state["enc_out"] = encdec.encode(cfg, model, frames)
 
     rng = np.random.default_rng(seed)
     lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, size=SERVE_SLOTS)
@@ -1977,6 +2048,7 @@ def serve_and_check(cfg, model, ops, card, stages, weights, seed, path,
     eng = Engine(cfg, model, ServeConfig(max_len=SERVE_MAX_LEN,
                                          temperature=0.0),
                  batch_slots=SERVE_SLOTS, device=LM_DEVICE)
+    hear(eng)
     for p in prompts:
         eng.submit(p)
     first = {}  # slot -> logits of the step that emitted its first token
@@ -2024,8 +2096,11 @@ def serve_and_check(cfg, model, ops, card, stages, weights, seed, path,
                              device=LM_DEVICE)
         for s, p in enumerate(prompts):
             padded[s, :len(p)] = torch.tensor(p, dtype=torch.int32)
-        pl, _ = transformer.forward(cfg, model, {"tokens": padded},
-                                    use_kernel=True)
+        batch = {"tokens": padded}
+        if frames is not None:
+            batch["frontend"] = frames
+        pl, _ = registry.model_fns(cfg)["forward"](cfg, model, batch,
+                                                   use_kernel=True)
         at = torch.tensor([len(p) - 1 for p in prompts], device=LM_DEVICE)
         pre = pl[torch.arange(SERVE_SLOTS, device=LM_DEVICE), at]
     else:
@@ -2051,9 +2126,14 @@ def serve_and_check(cfg, model, ops, card, stages, weights, seed, path,
     # ---- where decode's time goes: a short profiled run ----
     eng = Engine(cfg, model, ServeConfig(max_len=SERVE_MAX_LEN),
                  batch_slots=SERVE_SLOTS, device=LM_DEVICE)
+    hear(eng)
     for p in prompts:
         eng.submit(p[:4])
-    profile(lambda: eng.run(max_new_tokens=32), "32 decode steps")
+    t0 = time.perf_counter()
+    profile(lambda: eng.run(max_new_tokens=profile_steps),
+            f"{profile_steps} decode steps")
+    stages[f"{profile_steps} profiled decode steps (the profiler's "
+           f"processing in)"] = time.perf_counter() - t0
 
 
 class Routing:
@@ -2141,6 +2221,32 @@ def prefill_replaying_decode(cfg, model, prompts, routing, n_steps):
     return torch.stack(rows)
 
 
+def full_fp32():
+    """fp32 products in full fp32: a kernel path is held against the plain
+    path, and TF32 would keep ~3 digits."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
+@contextlib.contextmanager
+def last_flash_call(ops):
+    """Keeps the arguments of the last `ops.flash_attention` call made
+    inside the block (the list it yields holds one (q, k, v, causal))."""
+    calls = []
+    orig = ops.flash_attention
+
+    def record(q, k, v, **kw):
+        calls[:] = [(q, k, v, kw.get("causal", True))]
+        return orig(q, k, v, **kw)
+
+    ops.flash_attention = record
+    try:
+        yield calls
+    finally:
+        ops.flash_attention = orig
+
+
 def phase_lm(ops, card):
     """Path 4: llama3.2-3b at full width, random fp32 weights; the prefill
     forward through the flash kernel against the plain path, the kernel
@@ -2148,11 +2254,7 @@ def phase_lm(ops, card):
     the prefill.  Returns the JSON records of the kernel's two rows."""
     from repro_torch.models import registry, transformer
 
-    # fp32 products in full fp32: the kernel path is held against the
-    # plain path, and TF32 would keep ~3 digits
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+    full_fp32()
     cfg = registry.get(LM_ARCH)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2215,21 +2317,11 @@ def phase_lm(ops, card):
     del logits, plain
 
     # ---- where the time goes, and the path's call of the kernel ----
-    calls = []
-    orig = ops.flash_attention
-
-    def record(q, k, v, **kw):
-        calls[:] = [(q, k, v)]
-        return orig(q, k, v, **kw)
-
-    ops.flash_attention = record
-    try:
+    with last_flash_call(ops) as calls:
         profile(lambda: transformer.forward(cfg, model, {"tokens": tokens},
                                             use_kernel=True),
                 "prefill forward, kernel path")
-    finally:
-        ops.flash_attention = orig
-    q, k, v = calls[-1]  # the last layer's call
+    q, k, v, _ = calls[-1]  # the last layer's call
     records = [flash_row("flash_attention", ops, q, k, v,
                          launches["flash_attention"], card)]
     records.append(flash_row("flash_attention_bf16", ops, q.bfloat16(),
@@ -2377,9 +2469,7 @@ def phase_hybrid(ops, card):
     WITNESS_GROUPS groups.  Returns the JSON records of its three rows."""
     from repro_torch.models import registry, transformer
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+    full_fp32()
     cfg = registry.get(HYBRID_ARCH)
     n_groups, rem = divmod(cfg.n_layers, cfg.attn_every)
     torch.cuda.synchronize()
@@ -2533,9 +2623,7 @@ def phase_moe(ops, card):
     of the kernel's two rows."""
     from repro_torch.models import ffn, registry, transformer
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+    full_fp32()
     cfg = registry.get(MOE_ARCH)
     E, L = cfg.n_experts + cfg.expert_pad, cfg.n_layers
     torch.cuda.synchronize()
@@ -2623,21 +2711,11 @@ def phase_moe(ops, card):
     del logits, plain
 
     # ---- where the time goes, and the path's call of the kernel ----
-    calls = []
-    orig = ops.flash_attention
-
-    def record(q, k, v, **kw):
-        calls[:] = [(q, k, v)]
-        return orig(q, k, v, **kw)
-
-    ops.flash_attention = record
-    try:
+    with last_flash_call(ops) as calls:
         profile(lambda: transformer.forward(cfg, model, {"tokens": tokens},
                                             use_kernel=True),
                 "prefill forward, kernel path")
-    finally:
-        ops.flash_attention = orig
-    q, k, v = calls[-1]  # the last layer's call
+    q, k, v, _ = calls[-1]  # the last layer's call
     records = [flash_row("flash_attention_moe", ops, q, k, v,
                          launches["flash_attention"], card, "moe_prefill")]
     records.append(flash_row("flash_attention_moe_bf16", ops, q.bfloat16(),
@@ -2695,9 +2773,7 @@ def phase_xlstm(ops, card):
     against the prefill.  Returns the JSON records of its two rows."""
     from repro_torch.models import registry, ssm, transformer
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+    full_fp32()
     cfg = registry.get(XLSTM_ARCH)
     n_pairs = cfg.n_layers // 2
     hd = cfg.d_model // cfg.n_heads
@@ -2874,6 +2950,327 @@ def phase_xlstm(ops, card):
     return records
 
 
+def phase_whisper(ops, card):
+    """Path 10: whisper-large-v3 at full width, random fp32 weights: the
+    prefill forward (the decoder's causal self-attention through the flash
+    kernel) against the plain path; the encoder once more under
+    ATTN_IMPL="flash" (its non-causal attention through the kernel)
+    against the naive encoder; decode, with the encoder's output written
+    into the fp32 state, against the teacher-forced forward; the kernel
+    rows at the decoder's and the encoder's calls; and the decode Engine
+    serving 8 requests after the caller writes `encode`'s output into its
+    state.  Returns the JSON records of the kernel's four rows."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.models import encdec, flags, registry
+
+    full_fp32()
+    cfg = registry.get(WHISPER_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held0 = torch.cuda.memory_allocated()
+    stages = {}
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=LM_DEVICE)
+    gen.manual_seed(WHISPER_SEED)
+    model = encdec.init_params(cfg, gen, device=LM_DEVICE)
+    torch.cuda.synchronize()
+    stages["init_params"] = time.perf_counter() - t0
+    n = sum(p.numel() for p in model.parameters())
+    weights = torch.cuda.memory_allocated() - held0
+    # a decode step reads the decoder's layers and the head (one row of
+    # the embedding and of pos_dec, and none of the encoder)
+    step_bytes = 4 * (sum(p.numel() for p in model.dec.parameters())
+                      + model.lm_head.numel() + model.ln_f.numel())
+    log(f"path 10 model: {cfg.name}, {cfg.n_enc_layers} encoder and "
+        f"{cfg.n_layers} decoder layers (a cross-attention each), d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.hd}, d_ff {cfg.d_ff} "
+        f"({cfg.act}), vocab {cfg.vocab}, learned positions ({cfg.max_seq} "
+        f"decoder, {cfg.enc_max_seq} encoder); {n} parameters (the "
+        f"reference's init_params leaves: {WHISPER_PARAMS}; its "
+        f"param_count(): {int(cfg.param_count())}), {weights / 1e9:.2f} GB "
+        f"fp32 on the card, random from torch.Generator seed "
+        f"{WHISPER_SEED}, built in {stages['init_params']:.2f} s")
+    if n != WHISPER_PARAMS or next(model.parameters()).device.type != \
+            LM_DEVICE:
+        raise AssertionError("the model is not whisper-large-v3 at full "
+                             "width on the card")
+
+    # ---- prefill: the kernel path (clean), then the plain path ----
+    spec = registry.input_specs(cfg, SHAPES["prefill_32k"])
+    (B0, Sa, d), (_, S) = spec["frontend"].shape, spec["tokens"].shape
+    B = PREFILL_B
+    log(f"CUT: prefill of B={B} instead of input_specs(prefill_32k)'s "
+        f"B={B0}: frames [{B}, {Sa}, {d}] and tokens [{B}, {S}]; the frames "
+        f"(the stub frontend's embeddings, bf16 in the spec) are fp32 "
+        f"N(0, 1), the model's dtype")
+    frames = torch.randn((B, Sa, d), generator=gen, device=LM_DEVICE)
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                           device=LM_DEVICE, dtype=torch.int32)
+    batch = {"frontend": frames, "tokens": tokens}
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with last_flash_call(ops) as calls:
+        logits, aux = encdec.forward(cfg, model, batch, use_kernel=True)
+    torch.cuda.synchronize()
+    stages["prefill (kernel path)"] = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    log(f"launches in the prefill forward: {launches}")
+    check_path_kernels(launches, PATH10_KERNELS, "path 10")
+    if launches["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"flash_attention launched "
+                             f"{launches['flash_attention']} times, expected "
+                             f"one a decoder layer ({cfg.n_layers})")
+    vpad = -(-cfg.vocab // 16) * 16
+    if logits.shape != (B, S, vpad) or not bool(
+            torch.isfinite(logits).all()) or float(aux) != 0.0:
+        raise AssertionError("prefill logits have the wrong shape or are "
+                             "not finite")
+    q, k, v, _ = calls[-1]  # the last decoder layer's call
+    del calls
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    plain, _ = encdec.forward(cfg, model, batch)
+    torch.cuda.synchronize()
+    stages["prefill (plain path)"] = time.perf_counter() - t0
+    if any(ops.LAUNCHES.values()):
+        raise AssertionError(f"plain path launched kernels: {ops.LAUNCHES}")
+    compare_logits(logits, plain, WHISPER_TOL,
+                   "prefill, kernel path against plain path")
+    teacher = logits[:, :WHISPER_DECODE_STEPS].clone()
+    del logits, plain
+
+    # ---- the encoder under ATTN_IMPL="flash" against the naive one ----
+    enc = encdec.encode(cfg, model, frames)
+    old = flags.ATTN_IMPL
+    flags.ATTN_IMPL = "flash"
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with last_flash_call(ops) as calls:
+            enc_flash = encdec.encode(cfg, model, frames)
+        torch.cuda.synchronize()
+        stages["encode under ATTN_IMPL='flash'"] = time.perf_counter() - t0
+    finally:
+        flags.ATTN_IMPL = old
+    enc_launches = dict(ops.LAUNCHES)
+    log(f"launches in the encoder under ATTN_IMPL='flash': {enc_launches}")
+    check_path_kernels(enc_launches, PATH10_KERNELS, "path 10's encoder")
+    if enc_launches["flash_attention"] != cfg.n_enc_layers:
+        raise AssertionError(f"flash_attention launched "
+                             f"{enc_launches['flash_attention']} times in "
+                             f"the encoder, expected {cfg.n_enc_layers}")
+    diff = float((enc_flash - enc).abs().max())
+    log(f"encoder states [{B}, {Sa}, {d}], flash against naive: max abs "
+        f"difference {diff:.3g} (bound {WHISPER_TOL}; states std "
+        f"{float(enc.std()):.3f})")
+    if diff > WHISPER_TOL or not bool(torch.isfinite(enc_flash).all()):
+        raise AssertionError("the flash encoder disagrees with the naive "
+                             "one")
+    eq, ek, ev, causal = calls[-1]  # the last encoder layer's call
+    if causal:
+        raise AssertionError("the encoder's flash call was causal")
+    del calls, enc_flash
+
+    # ---- decode against the teacher-forced forward ----
+    state = encdec.init_decode_state(cfg, B, WHISPER_DECODE_STEPS,
+                                     dtype=torch.float32, device=LM_DEVICE)
+    state["enc_out"] = enc
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    steps = []
+    for i in range(WHISPER_DECODE_STEPS):
+        out, state = encdec.decode_step(cfg, model, state, tokens[:, i:i + 1])
+        steps.append(out[:, 0])
+    torch.cuda.synchronize()
+    stages[f"{WHISPER_DECODE_STEPS} decode steps (B={B})"] = \
+        time.perf_counter() - t0
+    if any(ops.LAUNCHES.values()):
+        raise AssertionError(f"decode launched kernels: {ops.LAUNCHES}")
+    compare_logits(torch.stack(steps, dim=1), teacher, WHISPER_TOL,
+                   f"decode_step (enc_out from encode, fp32 state) against "
+                   f"the teacher-forced forward at the first "
+                   f"{WHISPER_DECODE_STEPS} positions")
+    del steps, teacher, state, enc
+
+    t0 = time.perf_counter()
+    records = [flash_row("flash_attention_whisper", ops, q, k, v,
+                         launches["flash_attention"], card,
+                         "whisper_prefill")]
+    records.append(flash_row("flash_attention_whisper_bf16", ops,
+                             q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                             launches["flash_attention"], card,
+                             "whisper_prefill"))
+    records.append(flash_row("flash_attention_whisper_enc", ops, eq, ek, ev,
+                             enc_launches["flash_attention"], card,
+                             "whisper_encode_flash", causal=False))
+    records.append(flash_row("flash_attention_whisper_enc_bf16", ops,
+                             eq.bfloat16(), ek.bfloat16(), ev.bfloat16(),
+                             enc_launches["flash_attention"], card,
+                             "whisper_encode_flash", causal=False))
+    stages["the four kernel rows"] = time.perf_counter() - t0
+    del q, k, v, eq, ek, ev, batch, frames, tokens
+
+    # ---- serving: the caller writes the encoder's output ----
+    kv = 2 * 2 * SERVE_SLOTS * Sa * d * cfg.n_kv_heads * cfg.hd * cfg.n_layers
+    log(f"decode at {SERVE_SLOTS} slots: each step's cross-attentions "
+        f"project the {Sa} encoder states to k and v anew in every layer, as "
+        f"the reference does: {kv / 1e12:.3f} TFLOP of fp32 products "
+        f"({kv / SCALAR_OPS_PER_S * 1e3:.3f} ms at 67 TFLOP/s) beside the "
+        f"{step_bytes / 1e9:.2f} GB of decoder and head weights a step reads")
+    serve_frames = torch.randn((SERVE_SLOTS, Sa, d), generator=gen,
+                               device=LM_DEVICE)
+    # the profiler took ~46 s of host time to process 32 of whisper's
+    # decode steps (~60k kernels) on an H100 run, so 8
+    serve_and_check(cfg, model, ops, card, stages, step_bytes, WHISPER_SEED,
+                    "path 10", WHISPER_TOL, frames=serve_frames,
+                    profile_steps=8)
+    peak = torch.cuda.max_memory_allocated()
+    for name, t in stages.items():
+        log(f"[path 10] stage {name}: {t:.3f} s")
+    log(f"peak device memory (path 10): {peak / 1e9:.2f} GB; {card}")
+    del model, serve_frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    return records
+
+
+def phase_dense_archs(ops, card):
+    """Path 11: gemma-7b, starcoder2-3b, chatglm3-6b and internvl2-2b at
+    full width, one after another, each freed before the next: random fp32
+    weights, a prefill forward through the flash kernel (one launch a
+    layer) against the plain path, starcoder2's once more under
+    ATTN_IMPL="chunked" against the naive path, gemma's once more under
+    the profiler, and the kernel's rows at each model's last call.
+    Returns the JSON records of the eight rows."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import flags, registry, transformer
+
+    full_fp32()
+    shape = ShapeConfig("prefill", PREFILL_S, PREFILL_B, "prefill")
+    log(f"CUT: each prefill takes input_specs of B={PREFILL_B} x "
+        f"S={PREFILL_S} instead of prefill_32k's 32 x 32768 (internvl2: "
+        f"its frontend rows and S minus them of tokens); the frontend "
+        f"(bf16 stub embeddings in the spec) is fp32 N(0, 1), the model's "
+        f"dtype")
+    records = []
+    for arch, (seed, want_n) in DENSE_ARCHS.items():
+        cfg = registry.get(arch)
+        short = arch.split("-")[0]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held0 = torch.cuda.memory_allocated()
+        stages = {}
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=LM_DEVICE)
+        gen.manual_seed(seed)
+        model = transformer.init_params(cfg, gen, device=LM_DEVICE)
+        torch.cuda.synchronize()
+        stages["init_params"] = time.perf_counter() - t0
+        n = sum(p.numel() for p in model.parameters())
+        weights = torch.cuda.memory_allocated() - held0
+        log(f"path 11 model: {cfg.name}, {cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV heads "
+            f"of {cfg.hd}, d_ff {cfg.d_ff} ({cfg.act}), vocab {cfg.vocab}, "
+            f"{'tied' if cfg.tie_embeddings else 'untied'}, rotary on "
+            f"{cfg.rope_fraction:g} of each head, frontend {cfg.frontend}; "
+            f"{n} parameters (the reference's init_params leaves: {want_n};"
+            f" its param_count(): {int(cfg.param_count())}), "
+            f"{weights / 1e9:.2f} GB fp32 on the card, random from "
+            f"torch.Generator seed {seed}, built in "
+            f"{stages['init_params']:.2f} s")
+        if n != want_n or next(model.parameters()).device.type != LM_DEVICE:
+            raise AssertionError(f"the model is not {arch} at full width on "
+                                 f"the card")
+        spec = registry.input_specs(cfg, shape)
+        batch = {"tokens": torch.randint(0, cfg.vocab, spec["tokens"].shape,
+                                         generator=gen, device=LM_DEVICE,
+                                         dtype=torch.int32)}
+        if "frontend" in spec:
+            batch["frontend"] = torch.randn(spec["frontend"].shape,
+                                            generator=gen, device=LM_DEVICE)
+        log(f"{arch} prefill inputs: " + ", ".join(
+            f"{k} {list(t.shape)}" for k, t in batch.items()))
+
+        # ---- the kernel path (clean), then the plain path ----
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with last_flash_call(ops) as calls:
+            logits, aux = transformer.forward(cfg, model, batch,
+                                              use_kernel=True)
+        torch.cuda.synchronize()
+        stages["prefill (kernel path)"] = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        log(f"launches in the {arch} prefill forward: {launches}")
+        check_path_kernels(launches, PATH11_KERNELS, f"path 11 ({arch})")
+        if launches["flash_attention"] != cfg.n_layers:
+            raise AssertionError(f"flash_attention launched "
+                                 f"{launches['flash_attention']} times, "
+                                 f"expected one a layer ({cfg.n_layers})")
+        vpad = -(-cfg.vocab // 16) * 16
+        if logits.shape != (PREFILL_B, spec["tokens"].shape[1], vpad) or \
+                not bool(torch.isfinite(logits).all()) or float(aux) != 0.0:
+            raise AssertionError(f"{arch} prefill logits have the wrong "
+                                 f"shape or are not finite")
+        q, k, v, _ = calls[-1]  # the last layer's call
+        del calls
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        plain, _ = transformer.forward(cfg, model, batch)
+        torch.cuda.synchronize()
+        stages["prefill (plain path)"] = time.perf_counter() - t0
+        if any(ops.LAUNCHES.values()):
+            raise AssertionError(f"plain path launched kernels: "
+                                 f"{ops.LAUNCHES}")
+        compare_logits(logits, plain, DENSE_LOGIT_TOL,
+                       f"{arch} prefill, kernel path against plain path")
+        del logits
+        if arch == CHUNKED_ARCH:
+            old = flags.ATTN_IMPL
+            flags.ATTN_IMPL = "chunked"
+            try:
+                t0 = time.perf_counter()
+                chunked, _ = transformer.forward(cfg, model, batch)
+                torch.cuda.synchronize()
+                stages["prefill (ATTN_IMPL='chunked')"] = \
+                    time.perf_counter() - t0
+            finally:
+                flags.ATTN_IMPL = old
+            if any(ops.LAUNCHES.values()):
+                raise AssertionError(f"the chunked path launched kernels: "
+                                     f"{ops.LAUNCHES}")
+            compare_logits(chunked, plain, DENSE_LOGIT_TOL,
+                           f"{arch} prefill, ATTN_IMPL='chunked' (512 x 512 "
+                           f"blocks) against the naive path")
+            del chunked
+        del plain
+        if arch == PROFILED_ARCH:
+            profile(lambda: transformer.forward(cfg, model, batch,
+                                                use_kernel=True),
+                    f"{arch} prefill forward, kernel path")
+        records.append(flash_row(f"flash_attention_{short}", ops, q, k, v,
+                                 launches["flash_attention"], card,
+                                 f"{short}_prefill"))
+        records.append(flash_row(f"flash_attention_{short}_bf16", ops,
+                                 q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                                 launches["flash_attention"], card,
+                                 f"{short}_prefill"))
+        del q, k, v, batch
+        peak = torch.cuda.max_memory_allocated()
+        for name, t in stages.items():
+            log(f"[path 11, {arch}] stage {name}: {t:.3f} s")
+        log(f"peak device memory (path 11, {arch}): {peak / 1e9:.2f} GB; "
+            f"{card}")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return records
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--num-pairs", type=int, default=DEFAULT_PAIRS,
@@ -2950,10 +3347,12 @@ def main(argv=None) -> int:
     del path2, path3, path6a, small, small_stream
     gc.collect()
     torch.cuda.empty_cache()
-    records += phase_lm(ops, card)
-    records += phase_hybrid(ops, card)
-    records += phase_moe(ops, card)
-    records += phase_xlstm(ops, card)
+    for path, phase in ((4, phase_lm), (5, phase_hybrid), (8, phase_moe),
+                        (9, phase_xlstm), (10, phase_whisper),
+                        (11, phase_dense_archs)):
+        t0 = time.perf_counter()
+        records += phase(ops, card)
+        log(f"path {path} wall: {time.perf_counter() - t0:.1f} s")
 
     log(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -19,8 +19,10 @@ arrays (dense and MoE: every layer parameter stacked on a leading
 `wi` / `wg` / `wo` and its `shared` GLU; hybrid: `mamba` leaves stacked
 [groups, attn_every, ...], `mamba_tail` [rest, ...] and one `shared`
 block; xLSTM: `pairs` leaves stacked [n_layers // 2, ...], each pair's
-`m`, `s`, `ln_m` and `ln_s`), and `lm_to_numpy(model)` gives that pytree
-back.
+`m`, `s`, `ln_m` and `ln_s`; a frontend's stub projection `frontend`;
+enc-dec: `enc` and `dec` stacked [layers, ...] beside `pos_dec`,
+`pos_enc`, `ln_enc` and `lm_head`), and `lm_to_numpy(model)` gives that
+pytree back.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ from repro_torch.core.alignment import SeedIndex
 from repro_torch.core.dht import HashTable
 from repro_torch.core.kmer_analysis import ExtensionPolicy
 from repro_torch.core.local_assembly import WalkTables
-from repro_torch.models import attention, ffn, ssm, transformer
+from repro_torch.models import attention, encdec, ffn, ssm, transformer
 
 # Fields that hold uint32 lanes in the reference.
 LANE_FIELDS = frozenset({"hi", "lo", "hash", "slot_hi", "slot_lo"})
@@ -120,8 +122,12 @@ def _glu(p, t) -> ffn.GLU:
     return ffn.GLU(*(t(p[n]) for n in _GLU))
 
 
+def _attn(p, t) -> attention.Attention:
+    return attention.Attention(*(t(p[n]) for n in _ATTN))
+
+
 def _dense_layer(p, t) -> transformer.DenseLayer:
-    attn = attention.Attention(*(t(p["attn"][n]) for n in _ATTN))
+    attn = _attn(p["attn"], t)
     mlp = _glu(p["mlp"], t) if "mlp" in p else None
     moe = None
     if "moe" in p:
@@ -142,6 +148,17 @@ def _xlstm_pair(p, t) -> transformer.XLSTMPair:
         ssm.MLSTM(*(t(p["m"][n]) for n in ssm.MLSTM_PARAMS)),
         ssm.SLSTM(*(t(p["s"][n]) for n in ssm.SLSTM_PARAMS)),
         t(p["ln_m"]), t(p["ln_s"]))
+
+
+def _enc_layer(p, t) -> encdec.EncLayer:
+    return encdec.EncLayer(_attn(p["attn"], t), _glu(p["mlp"], t),
+                           t(p["ln1"]), t(p["ln2"]))
+
+
+def _dec_layer(p, t) -> encdec.DecLayer:
+    return encdec.DecLayer(_attn(p["attn"], t), _attn(p["xattn"], t),
+                           _glu(p["mlp"], t), t(p["ln1"]), t(p["ln2"]),
+                           t(p["ln3"]))
 
 
 def _numpy(p):
@@ -169,6 +186,17 @@ def _mamba_tree(lp: transformer.MambaLayer) -> dict:
                       for n in ssm.MAMBA2_PARAMS}, "ln": _numpy(lp.ln)}
 
 
+def _enc_tree(lp: encdec.EncLayer) -> dict:
+    return {"attn": _tree(lp.attn, _ATTN), "mlp": _tree(lp.mlp, _GLU),
+            "ln1": _numpy(lp.ln1), "ln2": _numpy(lp.ln2)}
+
+
+def _dec_tree(lp: encdec.DecLayer) -> dict:
+    return {"attn": _tree(lp.attn, _ATTN), "xattn": _tree(lp.xattn, _ATTN),
+            "mlp": _tree(lp.mlp, _GLU), "ln1": _numpy(lp.ln1),
+            "ln2": _numpy(lp.ln2), "ln3": _numpy(lp.ln3)}
+
+
 def _xlstm_tree(lp: transformer.XLSTMPair) -> dict:
     return {"m": _tree(lp.m, ssm.MLSTM_PARAMS),
             "s": _tree(lp.s, ssm.SLSTM_PARAMS),
@@ -176,15 +204,24 @@ def _xlstm_tree(lp: transformer.XLSTMPair) -> dict:
 
 
 def lm_from_numpy(cfg, params, device=None):
-    """The port's model (a `Transformer` for the dense and MoE families,
-    a `HybridLM` for the hybrid one, an `XLSTMLM` for xLSTM) from the
-    reference's params pytree; stacked layer axes are unstacked into one
-    module a layer (or pair)."""
+    """The port's model (a `Transformer` for the dense, MoE and vlm
+    families, a `HybridLM` for the hybrid one, an `XLSTMLM` for xLSTM, an
+    `EncDecLM` for enc-dec) from the reference's params pytree; stacked
+    layer axes are unstacked into one module a layer (or pair)."""
     def t(a):
         return tensor(a, device)
 
     lm_head = t(params["lm_head"]) if "lm_head" in params else None
     embed, ln_f = t(params["embed"]), t(params["ln_f"])
+    if cfg.family == "encdec":
+        return encdec.EncDecLM(
+            cfg, embed, t(params["pos_dec"]), t(params["pos_enc"]),
+            [_enc_layer(_index(params["enc"], i), t)
+             for i in range(cfg.n_enc_layers)],
+            [_dec_layer(_index(params["dec"], i), t)
+             for i in range(cfg.n_layers)],
+            ln_f, t(params["ln_enc"]), lm_head)
+    frontend = t(params["frontend"]) if "frontend" in params else None
     if cfg.family == "hybrid":
         n_groups, rem = divmod(cfg.n_layers, cfg.attn_every)
         groups = [[_mamba_layer(_index(params["mamba"], (g, i)), t)
@@ -193,19 +230,29 @@ def lm_from_numpy(cfg, params, device=None):
                 for i in range(rem)]
         return transformer.HybridLM(cfg, embed, ln_f, groups, tail,
                                     _dense_layer(params["shared"], t),
-                                    lm_head)
+                                    lm_head, frontend)
     if cfg.xlstm:
         pairs = [_xlstm_pair(_index(params["pairs"], i), t)
                  for i in range(cfg.n_layers // 2)]
-        return transformer.XLSTMLM(cfg, embed, ln_f, pairs, lm_head)
+        return transformer.XLSTMLM(cfg, embed, ln_f, pairs, lm_head,
+                                   frontend)
     dense = [_dense_layer(_index(params["layers"], i), t)
              for i in range(cfg.n_layers)]
-    return transformer.Transformer(cfg, embed, ln_f, dense, lm_head)
+    return transformer.Transformer(cfg, embed, ln_f, dense, lm_head,
+                                   frontend)
 
 
 def lm_to_numpy(model) -> dict:
     """The reference's params pytree (numpy) from the port's model."""
     out = {"embed": _numpy(model.embed), "ln_f": _numpy(model.ln_f)}
+    if isinstance(model, encdec.EncDecLM):
+        out.update(pos_dec=_numpy(model.pos_dec),
+                   pos_enc=_numpy(model.pos_enc),
+                   enc=_stack([_enc_tree(lp) for lp in model.enc]),
+                   dec=_stack([_dec_tree(lp) for lp in model.dec]),
+                   ln_enc=_numpy(model.ln_enc),
+                   lm_head=_numpy(model.lm_head))
+        return out
     if isinstance(model, transformer.HybridLM):
         out["mamba"] = _stack([_stack([_mamba_tree(lp) for lp in g])
                                for g in model.mamba])
@@ -219,4 +266,6 @@ def lm_to_numpy(model) -> dict:
         out["layers"] = _stack([_dense_tree(lp) for lp in model.layers])
     if model.lm_head is not None:
         out["lm_head"] = _numpy(model.lm_head)
+    if model.frontend is not None:
+        out["frontend"] = _numpy(model.frontend)
     return out

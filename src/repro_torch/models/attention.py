@@ -4,9 +4,12 @@ Mirrors `repro.models.attention`.  `full_attention(use_kernel=True)` (or
 `flags.ATTN_IMPL == "flash"`) runs the hand-written flash kernel through
 `kernels.ops.flash_attention` in the `[B, H, S, D]` layout: on a CUDA
 tensor it launches the kernel or raises, on a CPU tensor it takes the
-kernel's plain version.  Otherwise `_naive_attention`, the counterpart of
-the reference's XLA einsum path, builds the whole [B, H, S, S] score
-tensor.  As in the reference, the kernel path ignores `cfg.window`.
+kernel's plain version.  `flags.ATTN_IMPL == "chunked"` at S >= 1024 runs
+`_chunked_attention`, the reference's online softmax over 512 x 512 blocks
+outside any kernel (plain torch here, as XLA there).  Otherwise
+`_naive_attention`, the counterpart of the reference's XLA einsum path,
+builds the whole [B, H, S, S] score tensor.  As in the reference, the
+kernel path ignores `cfg.window` and the other two apply it.
 """
 from __future__ import annotations
 
@@ -88,6 +91,60 @@ def _naive_attention(q, k, v, cfg: ArchConfig, causal: bool):
     return torch.einsum("bhst,bthd->bshd", probs, vf)
 
 
+def _chunked_attention(q, k, v, cfg: ArchConfig, causal: bool,
+                       block_q: int = 512, block_k: int = 512):
+    """Online-softmax attention over (block_q, block_k) block pairs, the
+    reference's `_chunked_attention`: the live score tensor is
+    [B, H, block_q, block_k], not [B, H, S, S].
+
+    S must be a multiple of both blocks (cut to S when S is shorter), as
+    the reference asserts.  The causal and window masks (-1e30) are
+    applied per block pair and fully masked pairs still run, so a row whose
+    first blocks are all masked sums them in until a live block's maximum
+    scales them away, as there.  m, l and acc are fp32 (fp64 for fp64
+    inputs); l is clamped at 1e-30.
+    """
+    B, S, H, hd = q.shape
+    rep = H // cfg.n_kv_heads
+    kf = k.repeat_interleave(rep, dim=2)
+    vf = v.repeat_interleave(rep, dim=2)
+    bq, bk = min(block_q, S), min(block_k, S)
+    if S % bq or S % bk:
+        raise ValueError(f"_chunked_attention: S={S} is not a multiple of "
+                         f"the blocks ({bq}, {bk})")
+    scale = hd ** -0.5
+    acc_t = layers.acc_dtype(q.dtype)
+    ii = torch.arange(bq, device=q.device)
+    jj = torch.arange(bk, device=q.device)
+    outs = []
+    for qi in range(S // bq):
+        qx = q[:, qi * bq:(qi + 1) * bq]
+        acc = torch.zeros((B, H, bq, hd), dtype=acc_t, device=q.device)
+        m = torch.full((B, H, bq), NEG, dtype=acc_t, device=q.device)
+        l = torch.zeros((B, H, bq), dtype=acc_t, device=q.device)
+        for kj in range(S // bk):
+            kx = kf[:, kj * bk:(kj + 1) * bk]
+            vx = vf[:, kj * bk:(kj + 1) * bk]
+            s = torch.einsum("bqhd,bkhd->bhqk", qx, kx).to(acc_t) * scale
+            if causal:
+                qpos = qi * bq + ii
+                kpos = kj * bk + jj
+                mask = qpos[:, None] >= kpos[None, :]
+                if cfg.window:
+                    mask = mask & (qpos[:, None] - kpos[None, :] < cfg.window)
+                s = torch.where(mask, s, NEG)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p.to(q.dtype), vx).to(acc_t)
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(out.transpose(1, 2).to(q.dtype))  # [B, bq, H, hd]
+    return torch.cat(outs, dim=1)
+
+
 def full_attention(p, x, cfg: ArchConfig, rope, *, causal: bool = True,
                    use_kernel: bool = False):
     """Train/prefill attention over the whole sequence."""
@@ -97,13 +154,10 @@ def full_attention(p, x, cfg: ArchConfig, rope, *, causal: bool = True,
         o = ops.flash_attention(
             q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
             v.transpose(1, 2).contiguous(), causal=causal).transpose(1, 2)
-    elif flags.ATTN_IMPL == "naive":
-        o = _naive_attention(q, k, v, cfg, causal)
+    elif flags.ATTN_IMPL == "chunked" and S >= 1024:
+        o = _chunked_attention(q, k, v, cfg, causal)
     else:
-        raise NotImplementedError(
-            f"ATTN_IMPL={flags.ATTN_IMPL!r}: the port runs 'naive' and "
-            f"'flash'; 'chunked' (_chunked_attention) is still to port, "
-            f"ROADMAP.md Queue 1 item 8")
+        o = _naive_attention(q, k, v, cfg, causal)
     o = o.reshape(B, S, cfg.n_heads * cfg.hd)
     return o @ p.wo
 

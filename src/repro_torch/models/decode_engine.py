@@ -2,8 +2,11 @@
 
 Mirrors `repro.models.decode_engine`, and like it knows the model only
 through `registry.model_fns`: `init_decode_state` and `decode_step` of
-any ported family (dense KV caches, or the hybrid's SSM states and shared
-block caches).  The decode state is batch-wide with a single shared write
+any ported family (dense KV caches, the hybrid's SSM states and shared
+block caches, the xLSTM's states, or the enc-dec family's caches and its
+`enc_out`, zeroed as in the reference: the engine takes no audio, so a
+caller that serves audio writes `encode`'s output into
+`engine.state["enc_out"]` before `run`).  The decode state is batch-wide with a single shared write
 position, so every `decode_step` advances every slot.  A newly admitted request's prompt is
 therefore fed through the shared loop one token per step, isolated to its
 slot's row (its logits ignored until the prompt is consumed), while live

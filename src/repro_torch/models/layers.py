@@ -58,6 +58,16 @@ def rmsnorm(x, w, eps: float = 1e-5):
     return (x * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
+def layernorm(x, w, b=None, eps: float = 1e-5):
+    """Mean and (population) variance in fp32, cast back to x's dtype
+    before the weight; the bias, if any, after it, as the reference."""
+    xf = x.to(acc_dtype(x.dtype))
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    y = ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * w
+    return y + b if b is not None else y
+
+
 def rope_freqs(head_dim: int, max_seq: int, theta: float = 10000.0,
                fraction: float = 1.0, device=None):
     """fp32 rotary tables; fraction < 1 rotates only the leading dims."""

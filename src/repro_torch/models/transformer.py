@@ -1,9 +1,10 @@
 """Decoder stacks: the dense family, the MoE family (qwen2-moe, arctic),
-the hybrid family (zamba2) and the xLSTM family, with prefill forward and
-cached decode.
+the vlm family (internvl2), the hybrid family (zamba2) and the xLSTM
+family, with prefill forward and cached decode.
 
-Mirrors `repro.models.transformer` for llama3.2-3b, qwen2-moe-a2.7b,
-arctic-480b, zamba2-7b and xlstm-125m:
+Mirrors `repro.models.transformer` for llama3.2-3b, gemma-7b,
+starcoder2-3b, chatglm3-6b, qwen2-moe-a2.7b, arctic-480b, internvl2-2b,
+zamba2-7b and xlstm-125m:
 
   init_params(cfg, generator, device=...)   -> Transformer, HybridLM or
                                                XLSTMLM
@@ -25,7 +26,12 @@ runs eagerly, so there is no jit, scan or remat: `forward` runs under
 a multiple of 16; with tied embeddings the head is `embed.T`.  `forward`
 returns the MoE layers' aux losses summed (zero for the other families).
 Rotary tables are built only for the families that attend (not xLSTM).
-The frontend and enc-dec families raise (ROADMAP.md).
+A config with a vision frontend (internvl2) carries the reference's stub
+`frontend` projection [d, d]: `forward` prepends `batch["frontend"] @
+frontend` to the token embeddings, builds the rotary tables over both,
+and returns logits over the token positions only; `decode_step` ignores
+the frontend, as the reference does.  The enc-dec family (whisper) is
+`models.encdec`.
 """
 from __future__ import annotations
 
@@ -72,14 +78,16 @@ class XLSTMPair(nn.Module):
 
 
 class _LM(nn.Module):
-    """embed [Vpad, d], ln_f [d] and lm_head [d, Vpad] (None when tied)."""
+    """embed [Vpad, d], ln_f [d], lm_head [d, Vpad] (None when tied) and
+    frontend [d, d], the stub frontend projection (None without one)."""
 
-    def __init__(self, cfg: ArchConfig, embed, ln_f, lm_head):
+    def __init__(self, cfg: ArchConfig, embed, ln_f, lm_head, frontend=None):
         super().__init__()
         self.cfg = cfg
         self.embed = nn.Parameter(embed)
         self.ln_f = nn.Parameter(ln_f)
         self.lm_head = None if lm_head is None else nn.Parameter(lm_head)
+        self.frontend = None if frontend is None else nn.Parameter(frontend)
 
     def head(self):
         return self.embed.T if self.cfg.tie_embeddings else self.lm_head
@@ -89,8 +97,8 @@ class Transformer(_LM):
     """The dense family: the embedding, head and the layers."""
 
     def __init__(self, cfg: ArchConfig, embed, ln_f, dense_layers,
-                 lm_head=None):
-        super().__init__(cfg, embed, ln_f, lm_head)
+                 lm_head=None, frontend=None):
+        super().__init__(cfg, embed, ln_f, lm_head, frontend)
         self.layers = nn.ModuleList(dense_layers)
 
 
@@ -101,8 +109,8 @@ class HybridLM(_LM):
     group."""
 
     def __init__(self, cfg: ArchConfig, embed, ln_f, mamba_groups,
-                 mamba_tail, shared, lm_head=None):
-        super().__init__(cfg, embed, ln_f, lm_head)
+                 mamba_tail, shared, lm_head=None, frontend=None):
+        super().__init__(cfg, embed, ln_f, lm_head, frontend)
         self.mamba = nn.ModuleList(nn.ModuleList(g) for g in mamba_groups)
         self.mamba_tail = nn.ModuleList(mamba_tail)
         self.shared = shared
@@ -111,19 +119,23 @@ class HybridLM(_LM):
 class XLSTMLM(_LM):
     """The xLSTM family: `pairs`, n_layers // 2 `XLSTMPair`s."""
 
-    def __init__(self, cfg: ArchConfig, embed, ln_f, pairs, lm_head=None):
-        super().__init__(cfg, embed, ln_f, lm_head)
+    def __init__(self, cfg: ArchConfig, embed, ln_f, pairs, lm_head=None,
+                 frontend=None):
+        super().__init__(cfg, embed, ln_f, lm_head, frontend)
         self.pairs = nn.ModuleList(pairs)
 
 
 def check_family(cfg: ArchConfig) -> None:
-    """The port runs the dense, MoE, hybrid and xLSTM families; the rest
-    names its ROADMAP item."""
-    if cfg.frontend or not (cfg.xlstm or cfg.family in (
-            "dense", "moe", "hybrid")):
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} (frontends, enc-dec) is "
-            f"still to port, ROADMAP.md Queue 1 item 8")
+    """This module runs the dense, MoE, vlm, hybrid and xLSTM families and
+    the vision frontend; the enc-dec family and the audio frontend are
+    `models.encdec`'s (`registry.model_fns` picks the module)."""
+    if cfg.family == "encdec" or cfg.frontend not in (None, "vision"):
+        raise ValueError(
+            f"{cfg.name}: family {cfg.family!r} with frontend "
+            f"{cfg.frontend!r} runs in models.encdec, not "
+            f"models.transformer")
+    if not (cfg.xlstm or cfg.family in ("dense", "moe", "vlm", "hybrid")):
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
 
 
 def _has_mlp(cfg: ArchConfig) -> bool:
@@ -167,21 +179,25 @@ def init_params(cfg: ArchConfig, generator=None, *, device=None,
     lm_head = None
     if not cfg.tie_embeddings:
         lm_head = layers.dense_init(generator, cfg.d_model, vpad, **kw)
+    frontend = None
+    if cfg.frontend:
+        frontend = layers.dense_init(generator, cfg.d_model, cfg.d_model, **kw)
     if cfg.family == "hybrid":
         n_groups, rem = divmod(cfg.n_layers, cfg.attn_every)
         groups = [[_mamba_layer_init(generator, cfg, **kw)
                    for _ in range(cfg.attn_every)] for _ in range(n_groups)]
         tail = [_mamba_layer_init(generator, cfg, **kw) for _ in range(rem)]
         shared = _dense_layer_init(generator, cfg, **kw)
-        return HybridLM(cfg, embed, ln_f, groups, tail, shared, lm_head)
+        return HybridLM(cfg, embed, ln_f, groups, tail, shared, lm_head,
+                        frontend)
     if cfg.xlstm:
         assert cfg.n_layers % 2 == 0, cfg.n_layers
         pairs = [_xlstm_pair_init(generator, cfg, **kw)
                  for _ in range(cfg.n_layers // 2)]
-        return XLSTMLM(cfg, embed, ln_f, pairs, lm_head)
+        return XLSTMLM(cfg, embed, ln_f, pairs, lm_head, frontend)
     stack = [_dense_layer_init(generator, cfg, **kw)
              for _ in range(cfg.n_layers)]
-    return Transformer(cfg, embed, ln_f, stack, lm_head)
+    return Transformer(cfg, embed, ln_f, stack, lm_head, frontend)
 
 
 def _rope(cfg: ArchConfig, max_len: int, device):
@@ -249,13 +265,18 @@ def forward(cfg: ArchConfig, model, batch, *, use_kernel: bool = False,
     every Mamba-2 or mLSTM scan through the ssd_scan kernel (one launch
     each on a CUDA tensor).  aux_loss is the MoE layers' load-balance
     losses summed in layer order from a float32 zero (zero for the other
-    families).
+    families).  With a frontend, batch["frontend"] [B, F, d] is projected
+    and prepended: the layers see F + S positions, the logits the last S.
     """
     check_family(cfg)
     with torch.inference_mode(not grad):
         tokens = batch["tokens"]
+        S = tokens.shape[1]
         h = model.embed[tokens]
-        rope = _rope(cfg, tokens.shape[1], h.device)
+        if cfg.frontend:
+            fe = batch["frontend"] @ model.frontend
+            h = torch.cat([fe.to(h.dtype), h], dim=1)
+        rope = _rope(cfg, h.shape[1], h.device)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         if cfg.family == "hybrid":
             h = _hybrid_forward(cfg, model, h, rope, use_kernel)
@@ -267,6 +288,8 @@ def forward(cfg: ArchConfig, model, batch, *, use_kernel: bool = False,
                 if a_loss is not None:
                     aux = aux + a_loss
         h = layers.rmsnorm(h, model.ln_f, cfg.norm_eps)
+        if cfg.frontend:
+            h = h[:, -S:]  # logits over the text positions only
         return h @ model.head(), aux
 
 

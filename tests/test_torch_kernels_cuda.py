@@ -8,8 +8,9 @@ cases of those files, plus the whole `contig_rounds`, `assemble` and
 under `Mesh(2)`, the HMM scorer on the card against the CPU, two jobs
 interleaved on a `JobServer(Local())` against their solo runs, and the
 SMOKE llama's, SMOKE zamba2's and SMOKE xLSTM's `forward(use_kernel=True)`
-and greedy `Engine` and the SMOKE qwen2-moe's `forward(use_kernel=True)`
-on the card against the CPU run.  Skipped where no CUDA card is visible; on the
+and greedy `Engine` and the SMOKE qwen2-moe's, whisper's, gemma's,
+starcoder2's, chatglm3's and internvl2's `forward(use_kernel=True)` on
+the card against the CPU run.  Skipped where no CUDA card is visible; on the
 card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
@@ -834,6 +835,50 @@ def test_flash_attention_kernel_at_a_path_shape(dev, dtype):
     want = ops.flash_attention(q, k, v, backend="torch")
     tol = FLASH_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_at_the_whisper_encoder(dev, dtype):
+    """whisper-large-v3's encoder: non-causal, S = 1500 (a partial last
+    tile in both kernels), 20 heads of D = 64 (4 of them here)."""
+    q, k, v = _qkv(1500, 2, 4, 4, 1500, 64, dtype, dev)
+    got = ops.flash_attention(q, k, v, causal=False)
+    want = ops.flash_attention(q, k, v, causal=False, backend="torch")
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_at_gqa_16(dev, dtype, causal):
+    """chatglm3-6b's grouping: 32 query heads over 2 KV heads of D = 128."""
+    q, k, v = _qkv(16, 1, 32, 2, 1000, 128, dtype, dev)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = ops.flash_attention(q, k, v, causal=causal, backend="torch")
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "gemma-7b",
+                                  "starcoder2-3b", "chatglm3-6b",
+                                  "internvl2-2b"])
+def test_new_archs_forward_on_card_equals_cpu(dev, arch):
+    """The SMOKE enc-dec, dense and vlm configs: the kernel path on the
+    card (one flash launch a decoder layer) against the CPU's."""
+    from repro_torch.models import registry
+    cfg = registry.get(arch, smoke=True)
+    fns = registry.model_fns(cfg)
+    g = torch.Generator()
+    g.manual_seed(1)
+    cpu = fns["init_params"](cfg, g, device="cpu")
+    card = copy.deepcopy(cpu).to(dev)
+    batch = registry.smoke_batch(cfg, batch=2, seq=120, seed=2)
+    ops.reset_launches()
+    got, _ = fns["forward"](cfg, card, {k: v.to(dev) for k, v in
+                                        batch.items()}, use_kernel=True)
+    assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
+    want, _ = fns["forward"](cfg, cpu, batch, use_kernel=True)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
 
 
 def test_flash_attention_kernel_refuses_what_it_does_not_take(dev):

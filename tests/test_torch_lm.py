@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.models import flags as jflags
 from repro.models import layers as jlayers
 from repro.models import registry as jregistry
 from repro.models import transformer as jtransformer
@@ -273,23 +274,26 @@ def test_entry_points_raise_without_card(lm, monkeypatch):
 
 
 def test_unported_families_and_impls_raise(lm, monkeypatch):
-    _, _, cfg, model = lm
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.get("whisper-large-v3")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.get("gemma-7b")
+    """Nothing of the reference's registry or attention is left unported:
+    every reference id resolves, an unknown id is a KeyError, the enc-dec
+    family is refused by `transformer` (it runs in `encdec`), and
+    ATTN_IMPL="chunked" runs and equals the reference's chunked path."""
+    jcfg, params, cfg, model = lm
+    for arch in jregistry.ARCHS:
+        for smoke in (False, True):
+            assert registry.get(arch, smoke).name == \
+                jregistry.get(arch, smoke).name
     with pytest.raises(KeyError):
         registry.get("no-such-arch")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="encdec"):
         transformer.init_params(dataclasses.replace(cfg, family="encdec"),
                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.init_params(dataclasses.replace(cfg, frontend="vision"),
-                                device="cpu")
+    tok = _tokens(cfg, 1, 1024, seed=12)
     monkeypatch.setattr(flags, "ATTN_IMPL", "chunked")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.forward(cfg, model,
-                            {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+    monkeypatch.setattr(jflags, "ATTN_IMPL", "chunked")
+    want, _ = jtransformer.forward(jcfg, params, {"tokens": jnp.asarray(tok)})
+    got, _ = transformer.forward(cfg, model, {"tokens": torch.from_numpy(tok)})
+    _close(got, want, 2e-4)
 
 
 @pytest.mark.parametrize("frac", [1.0, 0.5])

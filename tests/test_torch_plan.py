@@ -92,3 +92,35 @@ def test_known_refusals():
             "small_plan_even_k"} <= refused
     plan, _ = _outcome(AssemblyPlan, ExtensionPolicy, PlanError, CASES[5])
     assert plan.contig_cap == 4096 and not plan.run_local_assembly
+
+
+# (preset, overrides as a function of the package's ExtensionPolicy)
+PRESETS = [
+    ("small_community_plan", lambda Policy: {}),
+    ("small_community_plan", lambda Policy: dict(
+        kmer_capacity=1 << 16, run_local_assembly=True, contig_cap=512)),
+    ("quality_plan", lambda Policy: {}),
+    ("quality_plan", lambda Policy: dict(
+        link_capacity=1 << 12, walk_capacity=1 << 17,
+        policy=Policy(min_ext=3))),
+]
+
+
+@pytest.mark.parametrize("name,overrides", PRESETS,
+                         ids=[f"{n}-{i}" for i, (n, _) in enumerate(PRESETS)])
+def test_assembly_presets_equal_reference(name, overrides):
+    """`configs.assembly_presets` builds the reference's plans, field for
+    field, with and without overrides."""
+    from repro.configs import assembly_presets as jpresets
+    from repro_torch.configs import assembly_presets as presets
+
+    jplan = getattr(jpresets, name)(**overrides(JPolicy))
+    plan = getattr(presets, name)(**overrides(ExtensionPolicy))
+    assert isinstance(plan, AssemblyPlan)
+    assert isinstance(plan.policy, ExtensionPolicy)
+    assert tuple(plan.policy) == tuple(jplan.policy)
+    want = dataclasses.asdict(jplan)
+    got = dataclasses.asdict(plan)
+    for key in ("policy", "kernel_backend"):
+        want.pop(key), got.pop(key)
+    assert got == want
