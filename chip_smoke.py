@@ -10,7 +10,8 @@ and its LM serving paths at full width with random fp32 weights:
 llama3.2-3b (path 4), the hybrid zamba2-7b (path 5), the MoE
 qwen2-moe-a2.7b (path 8), xlstm-125m (path 9), the enc-dec
 whisper-large-v3 (path 10) and the prefills of gemma-7b, starcoder2-3b,
-chatglm3-6b and the vlm internvl2-2b (path 11).  The community is sized
+chatglm3-6b and the vlm internvl2-2b (path 11); and its training path
+(path 12): llama3.2-3b at full width and xlstm-125m's `train()`.  The community is sized
 so the first round's traversal fits the contig_cap of 4096 that the
 reference's (contig, mer) tag space allows with the (17, 21, 25) walk
 ladder: with 40 genomes (+4 strains) and 240k reads that traversal finds
@@ -113,7 +114,7 @@ Steps:
      flash_attention against its plain version at that call in fp32 and in
      bf16, timed beside SDPA; the decode `Engine` serving 8 seeded prompts
      of 16-128 tokens for 160 greedy steps (steps/s, tokens/s), each
-     slot's first token's logits against a prefill of the 8 prompts; 32
+     slot's first token's logits against a prefill of the 8 prompts; 8
      decode steps under torch.profiler; stage times and peak memory;
   11. path 5, the hybrid serving path: zamba2-7b (81 Mamba-2 layers in 13
      groups of 6 and a tail of 3, d_model 3584, 112 SSM heads of
@@ -129,7 +130,7 @@ Steps:
      2e-4 |plain|) and flash_attention at D = 112 in fp32 and bf16
      (SDPA as library_ms), timed; the Engine serving 8 seeded prompts of
      16-128 tokens for up to 160 greedy steps, prefill against decode
-     (<= 5e-3), 32 profiled decode steps; a float64 witness: the first 3
+     (<= 5e-3), 8 profiled decode steps; a float64 witness: the first 3
      groups (18 Mamba-2 layers, 3 shared-block calls) on the prefill's
      tokens, the kernel and plain paths in fp32 against the plain path in
      float64 (built from the same layers once the rest of the model is
@@ -152,7 +153,7 @@ Steps:
      greedy steps (ms a step against the weight read and the fp32
      operations of the dense-capacity expert products), each slot's first
      decode logits against a prefill of its prompt alone replaying the
-     decode's picks (<= 1e-3); 32 profiled decode steps; stage times and
+     decode's picks (<= 1e-3); 8 profiled decode steps; stage times and
      peak memory;
   13. path 9, the xLSTM serving path (last): xlstm-125m (6 pairs of an
      mLSTM and an sLSTM block, d_model 768, 4 mLSTM heads of P = N = 192;
@@ -176,7 +177,7 @@ Steps:
      (inputs and y once, the carried states written once and read once,
      apart) beside the bound; the Engine
      serving 8 seeded prompts for 160 greedy steps, prefill against decode
-     (<= 1e-3); 32 profiled decode steps; stage times and peak memory;
+     (<= 1e-3); 8 profiled decode steps; stage times and peak memory;
   14. path 10, the enc-dec serving path: whisper-large-v3 (32 encoder and
      32 decoder layers, d_model 1280, 20 heads of 64, learned positions;
      2,106,242,560 parameters, the reference's init_params leaves) built
@@ -211,7 +212,28 @@ Steps:
      plain torch) against the naive path (<= 1e-3); gemma's once more
      under torch.profiler; the rows `flash_attention_<model>` and `_bf16`
      at each model's last call (D 256; GQA 12:1; GQA 16:1; 16 heads over
-     8), SDPA as library_ms; stage times and peak memory.
+     8), SDPA as library_ms; stage times and peak memory;
+  16. path 12, training (last; it runs no kernel, as the training forward
+     is the plain path, the reference's too: counts reset just before each
+     sub-path and read just after, every kernel at 0): 12a llama3.2-3b
+     at full width (3,212,749,824 parameters, tied) from a seeded
+     torch.Generator, `launch.train_step` (loss_fn's forward, backward,
+     apply_updates: the step `launch.train` runs) on 8 batches of
+     TrainConfig's B 8 x S 128 from `synthetic_token_stream`, with fp32
+     and then int8 moments: step 1's loss against a no-grad forward
+     (1e-6 relative), every step's loss and global norm finite, the last
+     loss below the first, the embedding's and layer 0's wq's update at
+     step 2 against the same update on the CPU (1e-6; int8 moments within
+     one quantum), ms a step split into forward, backward and
+     apply_updates (CUDA events), tokens/s, peak memory, 2 profiled steps;
+     then a float64 witness 2 layers deep at full width (each fp32
+     gradient leaf within 1e-3 of its max |g| from float64); 12b
+     `launch.train()` at xlstm-125m full width in a $TMPDIR checkpoint
+     directory: 6 steps with a checkpoint every 3, a run to 9 that
+     resumes at 6 from parameters and moments bit-equal to the first
+     run's final ones, and a run that a timer thread's SIGTERM stops
+     with a blocking checkpoint of the step it reached; the stragglers
+     flagged.
 
 Every profiled run also prints each of the eight ops' device time and
 kernel count (the profiler's kernels summed by the library each op
@@ -316,6 +338,9 @@ LM_SEED = 15
 PREFILL_B, PREFILL_S = 2, 4096   # CUT from prefill_32k's 32 x 32768
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW_TOKENS = 8, 512, 160
 PROMPT_LENS = (16, 128)
+# the profiler's host time to process 32 decode steps was 45-75 s on paths
+# 4, 5 and 8 and 46 s on path 10 (H100 runs), most of a path's wall
+PROFILED_DECODE_STEPS = 8
 # fp32 logits of two fp32 paths (another attention order, other cuBLAS
 # shapes) over 28 layers; the logits of the random model have std ~1
 LM_LOGIT_TOL = 1e-3
@@ -385,6 +410,23 @@ DENSE_ARCHS = {"gemma-7b": (37, 8_537_680_896),
 DENSE_LOGIT_TOL = 1e-3
 CHUNKED_ARCH = "starcoder2-3b"  # its prefill runs once more under "chunked"
 PROFILED_ARCH = "gemma-7b"  # its prefill runs once more under the profiler
+# path 12, training
+TRAIN_ARCH = "llama3.2-3b"  # the launcher's default --arch
+TRAIN_SEED = 53
+TRAIN_PARAMS = 3_212_749_824  # the reference's init_params leaves, tied
+TRAIN_STEPS = 8
+TRAIN_PROFILED_STEPS = 2
+TRAIN_TIMED_FROM = 2  # steps 1-2 warm up (and step 2 is copied out)
+# the loss of the step's forward against a no-grad forward: the same ops
+TRAIN_LOSS_TOL = 1e-6
+# one apply_updates on the card against the same update on the CPU
+UPDATE_TOL = 1e-6
+GRAD_WITNESS_LAYERS = 2
+# an fp32 gradient leaf against float64's, relative to the leaf's max |g|
+GRAD_WITNESS_TOL = 1e-3
+RESUME_ARCH = "xlstm-125m"  # the reference's own resume-test architecture
+RESUME_SEED = 59
+SIGTERM_AFTER_S = 3.0
 
 
 def log(*a):
@@ -2021,7 +2063,8 @@ def compare_logits(got, want, tol, what):
 
 
 def serve_and_check(cfg, model, ops, card, stages, weights, seed, path,
-                    tol, routing=None, frames=None, profile_steps=32):
+                    tol, routing=None, frames=None,
+                    profile_steps=PROFILED_DECODE_STEPS):
     """The decode Engine serves SERVE_SLOTS seeded prompts of PROMPT_LENS
     tokens for SERVE_NEW_TOKENS greedy steps (steps/s, tokens/s, ms a step
     against the weight-read floor), launching no kernel; then a prefill of
@@ -2124,6 +2167,8 @@ def serve_and_check(cfg, model, ops, card, stages, weights, seed, path,
     del pl, pre, dec
 
     # ---- where decode's time goes: a short profiled run ----
+    log(f"CUT: {profile_steps} profiled decode steps, not 32: the "
+        f"profiler's processing of 32 took most of a path's wall")
     eng = Engine(cfg, model, ServeConfig(max_len=SERVE_MAX_LEN),
                  batch_slots=SERVE_SLOTS, device=LM_DEVICE)
     hear(eng)
@@ -3122,11 +3167,8 @@ def phase_whisper(ops, card):
         f"{step_bytes / 1e9:.2f} GB of decoder and head weights a step reads")
     serve_frames = torch.randn((SERVE_SLOTS, Sa, d), generator=gen,
                                device=LM_DEVICE)
-    # the profiler took ~46 s of host time to process 32 of whisper's
-    # decode steps (~60k kernels) on an H100 run, so 8
     serve_and_check(cfg, model, ops, card, stages, step_bytes, WHISPER_SEED,
-                    "path 10", WHISPER_TOL, frames=serve_frames,
-                    profile_steps=8)
+                    "path 10", WHISPER_TOL, frames=serve_frames)
     peak = torch.cuda.max_memory_allocated()
     for name, t in stages.items():
         log(f"[path 10] stage {name}: {t:.3f} s")
@@ -3271,6 +3313,395 @@ def phase_dense_archs(ops, card):
     return records
 
 
+WATCHED = ("embed", "layers.0.attn.wq")  # leaves held to a CPU update
+
+
+def _host(t):
+    """A host copy (never a view, also of a CPU tensor)."""
+    return t.detach().to("cpu", copy=True)
+
+
+def _host_moment(st, opt):
+    return opt.MomentState(_host(st.value), None if st.scale is None
+                           else _host(st.scale))
+
+
+def _train_steps(cfg, model, state, adam, batches, launch, opt, label,
+                 check_step=None):
+    """Runs launch.train_step once a batch, timing each step's forward,
+    backward and apply_updates with CUDA events.  At `check_step` (0-
+    based) the watched leaves' p, g, m and v are copied to the host
+    between backward and apply_updates, and their updated p, m and v after
+    it, for `_check_update_on_cpu`.  Returns (losses, gnorms, per-phase ms
+    a step, the copies)."""
+    losses, gnorms, times, copies = [], [], [], {}
+    params = opt.named(model)
+
+    def grab(when):
+        copies[when] = {n: (_host(params[n]),
+                            None if params[n].grad is None
+                            else _host(params[n].grad),
+                            _host_moment(state["m"][n], opt),
+                            _host_moment(state["v"][n], opt))
+                        for n in WATCHED}
+
+    for i, batch in enumerate(batches):
+        marks = [torch.cuda.Event(enable_timing=True)]
+
+        def on_phase(name, i=i):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append(ev)
+            if name == "backward" and i == check_step:
+                grab("before")
+
+        marks[0].record()
+        loss, gnorm = launch.train_step(cfg, model, state, {"tokens": batch},
+                                        adam, on_phase=on_phase)
+        torch.cuda.synchronize()
+        ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+        losses.append(float(loss))
+        gnorms.append(float(gnorm))
+        times.append(ms)
+        if i == check_step:
+            grab("after")
+            copies["step"] = int(state["step"])
+            copies["gnorm"] = _host(gnorm)
+        log(f"[{label}] step {i + 1}: loss {losses[-1]:.6f}, gnorm "
+            f"{gnorms[-1]:.6f}, forward {ms[0]:.2f} ms, backward "
+            f"{ms[1]:.2f} ms, apply_updates {ms[2]:.2f} ms")
+        # a non-finite gradient anywhere makes the global norm non-finite
+        if not (np.isfinite(losses[-1]) and np.isfinite(gnorms[-1])):
+            raise AssertionError(f"{label}: step {i + 1} has a non-finite "
+                                 f"loss or gradient")
+    return losses, gnorms, times, copies
+
+
+def _check_update_on_cpu(copies, adam, opt, label):
+    """The card's apply_updates of the watched leaves against the same
+    update on the CPU from the same p, g, m and v, with the card's step
+    and global norm: p within UPDATE_TOL, fp32 moments too, int8 moments
+    within one quantum."""
+    step = torch.tensor(copies["step"], dtype=torch.int32)
+    clip = opt.clip_factor(copies["gnorm"], adam)
+    corrections = opt.bias_corrections(step, adam)
+    for n in WATCHED:
+        p, g, m, v = copies["before"][n]
+        opt.update_leaf(p, g, m, v, clip, corrections, adam)
+        card_p, _, card_m, card_v = copies["after"][n]
+        err = max_abs_err(p, card_p)
+        if adam.quantize_moments:
+            m_err = max(int((a.value.int() - b.value.int()).abs().max())
+                        for a, b in ((m, card_m), (v, card_v)))
+            m_ok, m_bound = m_err <= 1, "1 quantum"
+        else:
+            m_err = max(max_abs_err(m.value, card_m.value),
+                        max_abs_err(v.value, card_v.value))
+            m_ok, m_bound = m_err <= UPDATE_TOL, UPDATE_TOL
+        log(f"[{label}] apply_updates of {n} {list(p.shape)} at step "
+            f"{copies['step']}: card against CPU, parameters {err:.3g} "
+            f"(bound {UPDATE_TOL}), moments {m_err:.3g} (bound {m_bound})")
+        if err > UPDATE_TOL or not m_ok:
+            raise AssertionError(f"{label}: apply_updates of {n} on the "
+                                 f"card differs from the CPU's")
+
+
+def _grad_witness(cfg, batch, launch, layers, transformer):
+    """fp32 gradients of the training loss against float64's, the same
+    weights GRAD_WITNESS_LAYERS layers deep at full width: each leaf
+    within GRAD_WITNESS_TOL of its max |g|.  The float64 loss is its own
+    cross-entropy in float64 (layers.cross_entropy computes in fp32)."""
+    cut = dataclasses.replace(cfg, n_layers=GRAD_WITNESS_LAYERS)
+    gen = torch.Generator(device=LM_DEVICE)
+    gen.manual_seed(TRAIN_SEED)
+    m32 = transformer.init_params(cut, gen, device=LM_DEVICE)
+    m64 = copy.deepcopy(m32).to(torch.float64)
+    transformer.loss_fn(cut, m32, {"tokens": batch}).backward()
+    logits, _ = transformer.forward(cut, m64, {"tokens": batch}, grad=True)
+    targets, mask = layers.next_token_targets(batch)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, targets[..., None].long(),
+                                dim=-1)[..., 0]
+    mask = mask.double()
+    (((logz - gold) * mask).sum() / mask.sum()).backward()
+    del logits, logz, gold
+    worst = (0.0, "")
+    for (n, p32), p64 in zip(m32.named_parameters(), m64.parameters()):
+        g64 = p64.grad
+        rel = float((p32.grad.double() - g64).abs_().max()
+                    / g64.abs().max().clamp(min=1e-300))
+        worst = max(worst, (rel, n))
+    log(f"path 12a float64 witness: {cut.name} {GRAD_WITNESS_LAYERS} layers "
+        f"deep at full width on one batch; the worst fp32 gradient leaf is "
+        f"{worst[1]} at {worst[0]:.3g} of its max |g| from float64 (bound "
+        f"{GRAD_WITNESS_TOL})")
+    if worst[0] > GRAD_WITNESS_TOL:
+        raise AssertionError("path 12a: an fp32 gradient strays from "
+                             "float64")
+    del m32, m64
+
+
+def phase_train_llama(ops, card, launch, opt, layers, registry,
+                      transformer, synthetic_token_stream):
+    """Path 12a: llama3.2-3b at full width, the step train() runs, with
+    fp32 and then int8 moments."""
+    cfg = registry.get(TRAIN_ARCH)
+    tcfg = launch.TrainConfig()
+    B, S = tcfg.batch, tcfg.seq
+    log(f"CUT: path 12a runs launch.train_step, the step train() runs, not "
+        f"train() itself: train()'s final blocking save would write the "
+        f"parameters and fp32 moments (38.5 GB) through host memory and "
+        f"disk that this machine is not known to have; 12b runs train() end "
+        f"to end at {RESUME_ARCH}")
+    stream = synthetic_token_stream(cfg.vocab, B, S, seed=TRAIN_SEED)
+    n_batches = TRAIN_STEPS + TRAIN_PROFILED_STEPS
+    batches = [next(stream)["tokens"].to(LM_DEVICE) for _ in range(n_batches)]
+    stream.close()
+    log(f"path 12a batches: {n_batches} of B={B} x S={S} tokens "
+        f"(TrainConfig's defaults) from synthetic_token_stream seed "
+        f"{TRAIN_SEED}")
+    fp32_losses = None  # the fp32 run's, beside the int8 run's
+    stages = {}
+    for quantize in (False, True):
+        kind = "int8" if quantize else "fp32"
+        label = f"path 12a, {kind} moments"
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=LM_DEVICE)
+        gen.manual_seed(TRAIN_SEED)
+        model = transformer.init_params(cfg, gen, device=LM_DEVICE)
+        adam = opt.AdamConfig(quantize_moments=quantize)
+        state = opt.init_state(model, adam)
+        torch.cuda.synchronize()
+        stages[f"init_params and init_state ({kind})"] = \
+            time.perf_counter() - t0
+        n = sum(p.numel() for p in model.parameters())
+        weights = sum(p.nbytes for p in model.parameters())
+        values = sum(st.value.nbytes for k in ("m", "v")
+                     for st in state[k].values())
+        scales = sum(st.scale.nbytes for k in ("m", "v")
+                     for st in state[k].values() if st.scale is not None)
+        log(f"{label}: {cfg.name} at full width, {n} parameters "
+            f"({weights / 1e9:.2f} GB fp32), tied; m and v "
+            f"{values / 1e9:.2f} GB {kind} + {scales / 1e9:.2f} GB of "
+            f"scales; with the gradients "
+            f"{(2 * weights + values + scales) / 1e9:.2f} GB of state; built "
+            f"in {time.perf_counter() - t0:.2f} s")
+        if n != TRAIN_PARAMS or next(model.parameters()).device.type != \
+                LM_DEVICE:
+            raise AssertionError("the model is not llama3.2-3b at full "
+                                 "width on the card")
+        # the first step's loss against a no-grad forward on its batch
+        logits, aux = transformer.forward(cfg, model, {"tokens": batches[0]})
+        targets, mask = layers.next_token_targets(batches[0])
+        want0 = float(layers.cross_entropy(logits, targets, mask)
+                      + 0.01 * aux)
+        del logits, aux
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        losses, _, times, copies = _train_steps(
+            cfg, model, state, adam, batches[:TRAIN_STEPS], launch, opt,
+            label, check_step=1)
+        wall = time.perf_counter() - t0
+        stages[f"{TRAIN_STEPS} steps ({kind})"] = wall
+        launches = dict(ops.LAUNCHES)
+        check_path_kernels(launches, (), "path 12a")
+        rel = abs(losses[0] - want0) / abs(want0)
+        log(f"{label}: step 1's loss {losses[0]:.6f} against a no-grad "
+            f"forward's {want0:.6f}: relative difference {rel:.3g} (bound "
+            f"{TRAIN_LOSS_TOL}); loss {losses[0]:.6f} -> {losses[-1]:.6f} "
+            f"over {TRAIN_STEPS} steps; no kernel launched")
+        if rel > TRAIN_LOSS_TOL:
+            raise AssertionError(f"{label}: the step's loss is not the "
+                                 f"forward's")
+        if quantize:
+            # the reference's int8 v flushes a block's entries below its
+            # max / 254 to 0; beside a nonzero m such an entry's step is
+            # |mh| / (sqrt(vh) + eps), far above Adam's ~1
+            flushed = sum(int(((state["v"][k].value == 0)
+                               & (state["m"][k].value != 0)).sum())
+                          for k in state["v"])
+            trend = "fell" if losses[-1] < losses[0] else "did not fall"
+            log(f"{label}: the loss {trend} ({losses[0]:.6f} -> "
+                f"{losses[-1]:.6f}; fp32 moments {fp32_losses[0]:.6f} -> "
+                f"{fp32_losses[-1]:.6f}); "
+                f"{flushed} of {n} entries ({100 * flushed / n:.2f}%) hold "
+                f"an int8 v of 0 beside a nonzero m (the reference's "
+                f"linear absmax quantization, ROADMAP Queue 3), so the "
+                f"loss is held to be finite, not to fall")
+        elif not losses[-1] < losses[0]:
+            raise AssertionError(f"{label}: the loss did not fall")
+        else:
+            fp32_losses = losses
+        timed = np.asarray(times[TRAIN_TIMED_FROM:])
+        med = np.median(timed, axis=0)
+        step_ms = float(np.median(timed.sum(axis=1)))
+        peak = torch.cuda.max_memory_allocated()
+        log(f"{label}: {step_ms:.2f} ms a step (median of steps "
+            f"{TRAIN_TIMED_FROM + 1}-{TRAIN_STEPS}, CUDA events): forward "
+            f"{med[0]:.2f}, backward {med[1]:.2f}, apply_updates "
+            f"{med[2]:.2f} ms; {B * S / step_ms * 1e3:.0f} tokens/s; "
+            f"{TRAIN_STEPS} steps in {wall:.2f} s (host clock); peak device "
+            f"memory {peak / 1e9:.2f} GB ({(peak - held0) / 1e9:.2f} GB above "
+            f"what was held before); {card}")
+        t0 = time.perf_counter()
+        _check_update_on_cpu(copies, adam, opt, label)
+        del copies
+        stages[f"apply_updates on the CPU ({kind})"] = \
+            time.perf_counter() - t0
+        t0 = time.perf_counter()
+        profile(lambda: [launch.train_step(cfg, model, state, {"tokens": b},
+                                           adam)
+                         for b in batches[TRAIN_STEPS:]],
+                f"{TRAIN_PROFILED_STEPS} training steps, {label}")
+        stages[f"{TRAIN_PROFILED_STEPS} profiled steps ({kind})"] = \
+            time.perf_counter() - t0
+        del model, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _grad_witness(cfg, batches[0], launch, layers, transformer)
+    torch.cuda.synchronize()
+    stages["float64 witness"] = time.perf_counter() - t0
+    for name, t in stages.items():
+        log(f"[path 12a] stage {name}: {t:.3f} s")
+    del batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train_resume(ops, card, launch, opt, Checkpointer):
+    """Path 12b: launch.train() end to end at xlstm-125m full width, in a
+    $TMPDIR checkpoint directory: 6 steps with a checkpoint every 3, a run
+    to 9 that must resume at 6 with the parameters and optimizer state
+    bit-equal to the first run's, and a run stopped by SIGTERM from a
+    timer thread with a final checkpoint of the step it reached."""
+    import signal
+    import threading
+
+    seen = []  # (model, opt_state) of each train_step call
+    start = {}  # the host copy of the state a run's first step starts from
+    step_fn = launch.train_step
+
+    def host_state(model, state):
+        return ({n: _host(p) for n, p in model.named_parameters()},
+                {k: {n: _host_moment(st, opt) for n, st in state[k].items()}
+                 for k in ("m", "v")}, int(state["step"]))
+
+    def spy(cfg, model, state, batch, adam, **kw):
+        if not seen:
+            start["state"] = host_state(model, state)
+        seen.append((model, state))
+        return step_fn(cfg, model, state, batch, adam, **kw)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    launch.train_step = spy
+    timer = None
+    try:
+        for name, steps, every in (("run 1", 6, 3), ("run 2", 9, 3),
+                                   ("run 3", 1_000_000, 1_000_000)):
+            tcfg = launch.TrainConfig(steps=steps, ckpt_every=every,
+                                      ckpt_dir=tmp, log_every=1)
+            seen.clear()
+            if name == "run 3":
+                # the timer starts at the first step, when the hook is in
+                def first_step(*a, **kw):
+                    nonlocal timer
+                    if timer is None:
+                        timer = threading.Timer(
+                            SIGTERM_AFTER_S, os.kill,
+                            (os.getpid(), signal.SIGTERM))
+                        timer.start()
+                    return spy(*a, **kw)
+                launch.train_step = first_step
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            model, losses, monitor = launch.train(
+                RESUME_ARCH, tcfg, smoke=False, seed=RESUME_SEED,
+                device=LM_DEVICE)
+            wall = time.perf_counter() - t0
+            n = sum(p.numel() for p in model.parameters())
+            ck = Checkpointer(f"{tmp}/{RESUME_ARCH}")
+            log(f"path 12b {name}: train({RESUME_ARCH!r}, steps={steps}, "
+                f"ckpt_every={every}) at full width ({n} parameters) on the "
+                f"card: {len(losses)} steps in {wall:.2f} s, losses "
+                f"{[round(x, 4) for x in losses]}, checkpoints "
+                f"{ck.list_steps()}, stragglers flagged "
+                f"{len(monitor.flagged)} {monitor.flagged}, peak device "
+                f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+                f"{card}")
+            if n != XLSTM_PARAMS or not all(np.isfinite(losses)):
+                raise AssertionError(f"path 12b {name}: not {RESUME_ARCH} "
+                                     f"at full width, or a loss is not "
+                                     f"finite")
+            if name == "run 1":
+                if len(losses) != 6 or ck.latest_step() != 6:
+                    raise AssertionError("path 12b run 1 did not take 6 "
+                                         "steps and save step 6")
+                final = host_state(*seen[-1])
+            elif name == "run 2":
+                if len(losses) != 3 or ck.latest_step() != 9:
+                    raise AssertionError("path 12b run 2 did not resume at "
+                                         "step 6 and save step 9")
+                params, moments, step = final
+                got_p, got_m, got_step = start["state"]
+                same = got_step == step == 6 and all(
+                    torch.equal(got_p[n], t) for n, t in params.items()) \
+                    and all(torch.equal(got_m[k][n].value, st.value)
+                            for k in ("m", "v")
+                            for n, st in moments[k].items())
+                log(f"path 12b run 2: resumed at step 6, the parameters and "
+                    f"moments bit-equal to run 1's final ones: {same}")
+                if not same:
+                    raise AssertionError("path 12b: the resumed state is "
+                                         "not run 1's final state")
+            else:
+                stopped = 9 + len(losses)
+                if ck.latest_step() != stopped or len(losses) < 1:
+                    raise AssertionError(f"path 12b run 3: no final "
+                                         f"checkpoint of step {stopped} "
+                                         f"after SIGTERM")
+                log(f"path 12b run 3: SIGTERM after {SIGTERM_AFTER_S} s "
+                    f"stopped the run at step {stopped} with a blocking "
+                    f"checkpoint of it")
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        if timer is not None:
+            timer.cancel()
+        launch.train_step = step_fn
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_train(ops, card):
+    """Path 12: training (12a llama3.2-3b, 12b xlstm-125m's train()).
+    Runs no kernel (the training forward is the plain path, as the
+    reference's is) and returns no row."""
+    from repro_torch.data.tokens import synthetic_token_stream
+    from repro_torch.launch import train as launch
+    from repro_torch.models import layers, registry, transformer
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.checkpoint import Checkpointer
+
+    full_fp32()
+    t0 = time.perf_counter()
+    phase_train_llama(ops, card, launch, opt, layers, registry, transformer,
+                      synthetic_token_stream)
+    log(f"path 12a wall: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    phase_train_resume(ops, card, launch, opt, Checkpointer)
+    check_path_kernels(dict(ops.LAUNCHES), (), "path 12b")
+    log(f"path 12b wall: {time.perf_counter() - t0:.1f} s")
+    return []
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--num-pairs", type=int, default=DEFAULT_PAIRS,
@@ -3349,7 +3780,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     for path, phase in ((4, phase_lm), (5, phase_hybrid), (8, phase_moe),
                         (9, phase_xlstm), (10, phase_whisper),
-                        (11, phase_dense_archs)):
+                        (11, phase_dense_archs), (12, phase_train)):
         t0 = time.perf_counter()
         records += phase(ops, card)
         log(f"path {path} wall: {time.perf_counter() - t0:.1f} s")

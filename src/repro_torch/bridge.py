@@ -22,7 +22,10 @@ block; xLSTM: `pairs` leaves stacked [n_layers // 2, ...], each pair's
 `m`, `s`, `ln_m` and `ln_s`; a frontend's stub projection `frontend`;
 enc-dec: `enc` and `dec` stacked [layers, ...] beside `pos_dec`,
 `pos_enc`, `ln_enc` and `lm_head`), and `lm_to_numpy(model)` gives that
-pytree back.
+pytree back.  `grads_to_numpy(model)` gives the gradients in that
+pytree, and `opt_state_from_numpy` / `opt_state_to_numpy` map the
+reference's optimizer state (`MomentState` leaves of that pytree) onto
+the port's, one entry a parameter name, and back.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ from repro_torch.core.dht import HashTable
 from repro_torch.core.kmer_analysis import ExtensionPolicy
 from repro_torch.core.local_assembly import WalkTables
 from repro_torch.models import attention, encdec, ffn, ssm, transformer
+from repro_torch.train import optimizer as opt
 
 # Fields that hold uint32 lanes in the reference.
 LANE_FIELDS = frozenset({"hi", "lo", "hash", "slot_hi", "slot_lo"})
@@ -165,42 +169,44 @@ def _numpy(p):
     return p.detach().cpu().numpy()
 
 
-def _tree(module, names) -> dict:
-    return {n: _numpy(getattr(module, n)) for n in names}
+def _tree(module, names, leaf=_numpy) -> dict:
+    return {n: leaf(getattr(module, n)) for n in names}
 
 
-def _dense_tree(lp: transformer.DenseLayer) -> dict:
-    out = {"attn": _tree(lp.attn, _ATTN),
-           "ln1": _numpy(lp.ln1), "ln2": _numpy(lp.ln2)}
+def _dense_tree(lp: transformer.DenseLayer, leaf=_numpy) -> dict:
+    out = {"attn": _tree(lp.attn, _ATTN, leaf),
+           "ln1": leaf(lp.ln1), "ln2": leaf(lp.ln2)}
     if lp.moe is not None:
-        out["moe"] = _tree(lp.moe, _MOE)
+        out["moe"] = _tree(lp.moe, _MOE, leaf)
         if lp.moe.shared is not None:
-            out["moe"]["shared"] = _tree(lp.moe.shared, _GLU)
+            out["moe"]["shared"] = _tree(lp.moe.shared, _GLU, leaf)
     if lp.mlp is not None:
-        out["mlp"] = _tree(lp.mlp, _GLU)
+        out["mlp"] = _tree(lp.mlp, _GLU, leaf)
     return out
 
 
-def _mamba_tree(lp: transformer.MambaLayer) -> dict:
-    return {"mixer": {n: _numpy(getattr(lp.mixer, n))
-                      for n in ssm.MAMBA2_PARAMS}, "ln": _numpy(lp.ln)}
+def _mamba_tree(lp: transformer.MambaLayer, leaf=_numpy) -> dict:
+    return {"mixer": _tree(lp.mixer, ssm.MAMBA2_PARAMS, leaf),
+            "ln": leaf(lp.ln)}
 
 
-def _enc_tree(lp: encdec.EncLayer) -> dict:
-    return {"attn": _tree(lp.attn, _ATTN), "mlp": _tree(lp.mlp, _GLU),
-            "ln1": _numpy(lp.ln1), "ln2": _numpy(lp.ln2)}
+def _enc_tree(lp: encdec.EncLayer, leaf=_numpy) -> dict:
+    return {"attn": _tree(lp.attn, _ATTN, leaf),
+            "mlp": _tree(lp.mlp, _GLU, leaf),
+            "ln1": leaf(lp.ln1), "ln2": leaf(lp.ln2)}
 
 
-def _dec_tree(lp: encdec.DecLayer) -> dict:
-    return {"attn": _tree(lp.attn, _ATTN), "xattn": _tree(lp.xattn, _ATTN),
-            "mlp": _tree(lp.mlp, _GLU), "ln1": _numpy(lp.ln1),
-            "ln2": _numpy(lp.ln2), "ln3": _numpy(lp.ln3)}
+def _dec_tree(lp: encdec.DecLayer, leaf=_numpy) -> dict:
+    return {"attn": _tree(lp.attn, _ATTN, leaf),
+            "xattn": _tree(lp.xattn, _ATTN, leaf),
+            "mlp": _tree(lp.mlp, _GLU, leaf), "ln1": leaf(lp.ln1),
+            "ln2": leaf(lp.ln2), "ln3": leaf(lp.ln3)}
 
 
-def _xlstm_tree(lp: transformer.XLSTMPair) -> dict:
-    return {"m": _tree(lp.m, ssm.MLSTM_PARAMS),
-            "s": _tree(lp.s, ssm.SLSTM_PARAMS),
-            "ln_m": _numpy(lp.ln_m), "ln_s": _numpy(lp.ln_s)}
+def _xlstm_tree(lp: transformer.XLSTMPair, leaf=_numpy) -> dict:
+    return {"m": _tree(lp.m, ssm.MLSTM_PARAMS, leaf),
+            "s": _tree(lp.s, ssm.SLSTM_PARAMS, leaf),
+            "ln_m": leaf(lp.ln_m), "ln_s": leaf(lp.ln_s)}
 
 
 def lm_from_numpy(cfg, params, device=None):
@@ -242,30 +248,137 @@ def lm_from_numpy(cfg, params, device=None):
                                    frontend)
 
 
-def lm_to_numpy(model) -> dict:
-    """The reference's params pytree (numpy) from the port's model."""
-    out = {"embed": _numpy(model.embed), "ln_f": _numpy(model.ln_f)}
+def _lm_tree(model, leaf=_numpy) -> dict:
+    """The reference's params pytree of the port's model, each parameter
+    mapped through leaf(p) and stacked on the reference's layer axes."""
+    out = {"embed": leaf(model.embed), "ln_f": leaf(model.ln_f)}
     if isinstance(model, encdec.EncDecLM):
-        out.update(pos_dec=_numpy(model.pos_dec),
-                   pos_enc=_numpy(model.pos_enc),
-                   enc=_stack([_enc_tree(lp) for lp in model.enc]),
-                   dec=_stack([_dec_tree(lp) for lp in model.dec]),
-                   ln_enc=_numpy(model.ln_enc),
-                   lm_head=_numpy(model.lm_head))
+        out.update(pos_dec=leaf(model.pos_dec),
+                   pos_enc=leaf(model.pos_enc),
+                   enc=_stack([_enc_tree(lp, leaf) for lp in model.enc]),
+                   dec=_stack([_dec_tree(lp, leaf) for lp in model.dec]),
+                   ln_enc=leaf(model.ln_enc),
+                   lm_head=leaf(model.lm_head))
         return out
     if isinstance(model, transformer.HybridLM):
-        out["mamba"] = _stack([_stack([_mamba_tree(lp) for lp in g])
+        out["mamba"] = _stack([_stack([_mamba_tree(lp, leaf) for lp in g])
                                for g in model.mamba])
         if len(model.mamba_tail):
-            out["mamba_tail"] = _stack([_mamba_tree(lp)
+            out["mamba_tail"] = _stack([_mamba_tree(lp, leaf)
                                         for lp in model.mamba_tail])
-        out["shared"] = _dense_tree(model.shared)
+        out["shared"] = _dense_tree(model.shared, leaf)
     elif isinstance(model, transformer.XLSTMLM):
-        out["pairs"] = _stack([_xlstm_tree(lp) for lp in model.pairs])
+        out["pairs"] = _stack([_xlstm_tree(lp, leaf) for lp in model.pairs])
     else:
-        out["layers"] = _stack([_dense_tree(lp) for lp in model.layers])
+        out["layers"] = _stack([_dense_tree(lp, leaf) for lp in model.layers])
     if model.lm_head is not None:
-        out["lm_head"] = _numpy(model.lm_head)
+        out["lm_head"] = leaf(model.lm_head)
     if model.frontend is not None:
-        out["frontend"] = _numpy(model.frontend)
+        out["frontend"] = leaf(model.frontend)
     return out
+
+
+def lm_to_numpy(model) -> dict:
+    """The reference's params pytree (numpy) from the port's model."""
+    return _lm_tree(model)
+
+
+def grads_to_numpy(model) -> dict:
+    """The parameters' gradients as the reference's params pytree (zeros
+    where a parameter has none, as `jax.grad` gives)."""
+    return _lm_tree(model, lambda p: np.zeros(p.shape, np.float32)
+                    if p.grad is None else _numpy(p.grad))
+
+
+def _param_names(model) -> dict:
+    """The reference's params pytree with each leaf the array of the
+    port's parameter names stacked into it: its shape is the leaf's layer
+    axes (0-d for a leaf that is not stacked)."""
+    ids = {id(p): n for n, p in model.named_parameters()}
+    names = _map(np.asarray, _lm_tree(model, lambda p: ids[id(p)]))
+    seen = sorted(n for a in _leaves(names) for n in a.reshape(-1))
+    if seen != sorted(ids.values()):
+        raise ValueError("the parameter tree does not cover the model's "
+                         "parameters once each")
+    return names
+
+
+def _map(fn, tree, *rest):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _block_rows(names, shape, what) -> int:
+    """Blocks a stacked leaf's moment has for each of its layers: the
+    reference quantizes the stack flattened, the port each layer, and the
+    two cut alike only if a layer fills whole blocks."""
+    n = int(np.prod(shape, dtype=np.int64))
+    if names.size > 1 and n % opt.BLOCK:
+        raise ValueError(
+            f"{what}: a layer's {n} entries fill no whole number of "
+            f"{opt.BLOCK}-entry blocks, so the reference's blocks of the "
+            f"stacked leaf and the port's of each layer differ")
+    return -(-n // opt.BLOCK)
+
+
+def opt_state_from_numpy(model, state, device=None) -> dict:
+    """The port's optimizer state, {"m": {name: MomentState}, "v": ...,
+    "step"}, from the reference's `init_state` / `apply_updates` state as
+    numpy (`MomentState(value, scale)` leaves of the stacked params
+    pytree).  fp32 moments unstack into one tensor a parameter; int8
+    moments split their blocks by layer, which needs every stacked layer to
+    fill whole blocks (else ValueError)."""
+    names = _param_names(model)
+    params = dict(model.named_parameters())
+    out = {"m": {}, "v": {}, "step": tensor(np.asarray(state["step"],
+                                                       np.int32), device)}
+    for key in ("m", "v"):
+        def one(ns, st):
+            shape = params[ns.reshape(-1)[0]].shape
+            if st.scale is None:
+                vals = np.asarray(st.value).reshape((ns.size,) + shape)
+                scales = [None] * ns.size
+            else:
+                nb = _block_rows(ns, shape, ns.reshape(-1)[0])
+                vals = np.asarray(st.value).reshape(ns.size, nb, -1)
+                scales = np.asarray(st.scale).reshape(ns.size, nb, 1)
+            for i, n in enumerate(ns.reshape(-1)):
+                out[key][str(n)] = opt.MomentState(
+                    tensor(vals[i], device),
+                    None if scales[i] is None else tensor(scales[i], device))
+
+        _map(one, names, state[key])
+    return out
+
+
+def opt_state_to_numpy(model, state) -> dict:
+    """The reference's optimizer state (numpy, the stacked params pytree
+    of `MomentState`s) from the port's; the inverse of
+    `opt_state_from_numpy`."""
+    names = _param_names(model)
+    params = dict(model.named_parameters())
+
+    def one(ns, moments):
+        flat = [moments[n] for n in ns.reshape(-1)]
+        shape = params[ns.reshape(-1)[0]].shape
+        if flat[0].scale is None:
+            value = np.stack([_numpy(m.value) for m in flat])
+            return opt.MomentState(value.reshape(ns.shape + shape), None)
+        _block_rows(ns, shape, ns.reshape(-1)[0])
+        return opt.MomentState(
+            np.concatenate([_numpy(m.value) for m in flat]),
+            np.concatenate([_numpy(m.scale) for m in flat]))
+
+    return {"m": _map(lambda ns: one(ns, state["m"]), names),
+            "v": _map(lambda ns: one(ns, state["v"]), names),
+            "step": np.asarray(_numpy(state["step"]), np.int32)}

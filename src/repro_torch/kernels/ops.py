@@ -65,6 +65,18 @@ def _stream(dev) -> int:
     return torch._C._cuda_getCurrentRawStream(index)
 
 
+def _refuse_grad(op: str, *tensors) -> None:
+    """The LM kernels have no backward: autograd would stop at their
+    output, and the parameters before it would get no gradient.  Refuse
+    inputs that require grad under grad mode, on every device and backend
+    (the reference's kernel path cannot be differentiated either)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(
+            f"{op}: the kernel has no backward; run the plain path "
+            f"(use_kernel=False) to differentiate, or call it under "
+            f"torch.no_grad() / torch.inference_mode()")
+
+
 def _launched(op: str, lib, err: int) -> None:
     if err != 0:
         raise RuntimeError(
@@ -406,8 +418,10 @@ def flash_attention(q, k, v, *, causal: bool = True, scale=None,
 
     fp32 or bf16 inputs of one dtype, fp32 accumulation, output in q's
     dtype; scale defaults to 1/sqrt(D).  The kernel takes D in (16, 32,
-    64, 112, 128, 256) and contiguous tensors.
+    64, 112, 128, 256) and contiguous tensors.  It has no backward: inputs
+    that require grad under grad mode raise ValueError.
     """
+    _refuse_grad("flash_attention", q, k, v)
     if not _use_kernel(backend, q):
         return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
     if q.dim() != 4:
@@ -460,13 +474,15 @@ def ssd_scan(x, a, b, c, *, chunk: int = 128, backend=None):
     `ssd_scan.cu` heads of P, N <= 64 (zamba2's), `ssd_scan_wide.cu` the
     wider ones up to P, N <= 256 (the mLSTM's 192) with B H <= 65535, in
     whole 64-wide tiles (a head of other widths, or unaligned data, runs
-    on a zero-padded copy); a wider head raises.
+    on a zero-padded copy); a wider head raises.  No backward: inputs
+    that require grad under grad mode raise ValueError.
     """
     if x.dim() != 4:
         raise ValueError(f"ssd_scan: x must be [B, S, H, P], got "
                          f"{tuple(x.shape)}")
     B, S, H, P = x.shape
     Q = ref.ssd_chunk(S, chunk)
+    _refuse_grad("ssd_scan", x, a, b, c)
     if not _use_kernel(backend, x):
         return ref.ssd_scan_ref(x, a, b, c, chunk=chunk)
     N = b.shape[-1] if b.dim() == 4 else 0

@@ -9,6 +9,7 @@ each decoder layer adds a cross-attention into the encoder's output:
   init_params(cfg, generator, device=...)   -> EncDecLM
   encode(cfg, model, frames)                -> enc_out [B, S_audio, d]
   forward(cfg, model, batch, use_kernel=...) -> (logits [B, S, Vpad], 0.0)
+  loss_fn(cfg, model, batch)                 -> scalar training loss
   init_decode_state(cfg, B, max_len)         -> {"caches", "enc_out", "pos"}
   decode_step(cfg, model, state, tokens)     -> (logits [B, 1, Vpad], state)
 
@@ -180,6 +181,16 @@ def forward(cfg: ArchConfig, model: EncDecLM, batch, *,
         h = layers.layernorm(h, model.ln_f, eps=cfg.norm_eps)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         return h @ model.lm_head, aux
+
+
+def loss_fn(cfg: ArchConfig, model: EncDecLM, batch, *,
+            use_kernel: bool = False, aux_weight: float = 0.0):
+    """Mean next-token cross-entropy of the teacher-forced decoder over
+    `forward(grad=True)`'s logits (the family has no aux loss, so
+    aux_weight is unused, as in the reference)."""
+    logits, _ = forward(cfg, model, batch, use_kernel=use_kernel, grad=True)
+    targets, mask = layers.next_token_targets(batch["tokens"])
+    return layers.cross_entropy(logits, targets, mask)
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,

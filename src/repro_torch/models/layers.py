@@ -116,6 +116,17 @@ def pad_to_multiple(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
+def next_token_targets(tokens):
+    """(targets, mask) of next-token prediction: position t predicts
+    tokens[t + 1]; the last position's target is 0 and masked out."""
+    targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
+                        dim=1)
+    mask = torch.ones(tokens.shape, dtype=torch.float32,
+                      device=tokens.device)
+    mask[:, -1] = 0.0
+    return targets, mask
+
+
 def cross_entropy(logits, targets, mask):
     """Mean token NLL.  logits [B, S, V] (fp32-cast); targets [B, S]."""
     logits = logits.float()

@@ -38,9 +38,8 @@ def get(arch_id: str, smoke: bool = False) -> ArchConfig:
 
 
 def model_fns(cfg: ArchConfig):
-    """(init_params, forward, init_decode_state, decode_step): the enc-dec
-    family's from `encdec`, the rest from `transformer`.  `loss_fn` waits
-    for the training slice (ROADMAP.md Queue 1 item 8)."""
+    """(init_params, forward, loss_fn, init_decode_state, decode_step):
+    the enc-dec family's from `encdec`, the rest from `transformer`."""
     if cfg.family == "encdec":
         mod = encdec
     else:
@@ -49,6 +48,7 @@ def model_fns(cfg: ArchConfig):
     return {
         "init_params": mod.init_params,
         "forward": mod.forward,
+        "loss_fn": mod.loss_fn,
         "init_decode_state": mod.init_decode_state,
         "decode_step": mod.decode_step,
     }

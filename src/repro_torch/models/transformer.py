@@ -9,6 +9,7 @@ zamba2-7b and xlstm-125m:
   init_params(cfg, generator, device=...)   -> Transformer, HybridLM or
                                                XLSTMLM
   forward(cfg, model, batch, use_kernel=...) -> (logits [B, S, Vpad], aux)
+  loss_fn(cfg, model, batch)                 -> scalar training loss
   init_decode_state(cfg, B, max_len)         -> the family's decode state
   decode_step(cfg, model, state, tokens)     -> (logits [B, 1, Vpad], state)
 
@@ -291,6 +292,19 @@ def forward(cfg: ArchConfig, model, batch, *, use_kernel: bool = False,
         if cfg.frontend:
             h = h[:, -S:]  # logits over the text positions only
         return h @ model.head(), aux
+
+
+def loss_fn(cfg: ArchConfig, model, batch, *, use_kernel: bool = False,
+            aux_weight: float = 0.01):
+    """The training loss: mean next-token cross-entropy over the logits
+    of `forward(grad=True)` plus aux_weight times the MoE aux loss, a
+    scalar that autograd can differentiate.  The kernel ops have no
+    backward, so `use_kernel=True` raises once autograd is on (as the
+    reference's kernel path cannot be differentiated)."""
+    logits, aux = forward(cfg, model, batch, use_kernel=use_kernel,
+                          grad=True)
+    targets, mask = layers.next_token_targets(batch["tokens"])
+    return layers.cross_entropy(logits, targets, mask) + aux_weight * aux
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,

@@ -10,7 +10,8 @@ interleaved on a `JobServer(Local())` against their solo runs, and the
 SMOKE llama's, SMOKE zamba2's and SMOKE xLSTM's `forward(use_kernel=True)`
 and greedy `Engine` and the SMOKE qwen2-moe's, whisper's, gemma's,
 starcoder2's, chatglm3's and internvl2's `forward(use_kernel=True)` on
-the card against the CPU run.  Skipped where no CUDA card is visible; on the
+the card against the CPU run, and training steps of the SMOKE llama
+(fp32 and int8 moments; no kernel) against the CPU's.  Skipped where no CUDA card is visible; on the
 card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
@@ -1300,3 +1301,57 @@ def test_xlstm_forward_and_engine_on_card_equal_cpu(dev):
         outs.append(eng.run(max_new_tokens=40))
         assert not any(ops.LAUNCHES.values())  # decode: the steps, no scan
     assert outs[0] == outs[1]
+
+
+def test_train_steps_on_card_equal_cpu(dev):
+    """`launch.train_step` on the SMOKE llama, the card against the CPU:
+    three steps with fp32 moments (the losses and parameters at 1e-4), and
+    one with int8 moments (the loss and parameters at 1e-4, the int8
+    moments within one quantum: past one step the reference's int8 v
+    turns a one-quantum difference into a step of hundreds of lr, ROADMAP
+    Queue 3); no kernel launched (the training forward is the plain
+    path)."""
+    from repro_torch.launch import train as launch
+    from repro_torch.models import registry, transformer
+    from repro_torch.train import optimizer as opt
+
+    cfg = registry.get("llama3.2-3b", smoke=True)
+    gen = torch.Generator()
+    gen.manual_seed(3)
+    cpu = transformer.init_params(cfg, gen, device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (3, 4, 32), generator=gen,
+                           dtype=torch.int32)
+    for quantize, steps in ((False, 3), (True, 1)):
+        adam = opt.AdamConfig(quantize_moments=quantize)
+        models = {"cpu": copy.deepcopy(cpu),
+                  "cuda": copy.deepcopy(cpu).to(dev)}
+        losses, states = {}, {}
+        ops.reset_launches()
+        for where, model in models.items():
+            states[where] = opt.init_state(model, adam)
+            losses[where] = [float(launch.train_step(
+                cfg, model, states[where], {"tokens": t.to(where)}, adam)[0])
+                for t in tokens[:steps]]
+        assert not any(ops.LAUNCHES.values())
+        np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+        for (n, p), q in zip(models["cpu"].named_parameters(),
+                             models["cuda"].parameters()):
+            np.testing.assert_allclose(q.detach().cpu().numpy(),
+                                       p.detach().numpy(), rtol=1e-4,
+                                       atol=1e-4, err_msg=n)
+        if quantize:
+            for k in ("m", "v"):
+                for n, st in states["cpu"][k].items():
+                    card = states["cuda"][k][n].value.cpu().int()
+                    assert (card - st.value.int()).abs().max() <= 1, n
+
+
+def test_lm_ops_refuse_gradients_on_the_card(dev):
+    q = torch.randn((1, 2, 64, 64), device=dev, requires_grad=True)
+    with pytest.raises(ValueError, match="no backward"):
+        ops.flash_attention(q, q, q)
+    x = torch.randn((1, 64, 2, 16), device=dev, requires_grad=True)
+    a = torch.zeros((1, 64, 2), device=dev)
+    bc = torch.randn((1, 64, 2, 16), device=dev)
+    with pytest.raises(ValueError, match="no backward"):
+        ops.ssd_scan(x, a, bc, bc, chunk=32)
