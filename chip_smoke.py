@@ -84,7 +84,16 @@ Steps:
      200-base window of genome 0 (its wall time and the positions it
      looped over; at least one contig flagged, a seeded random row not;
      flags and scores (1e-4) equal to the CPU run), then
-     `assemble(hmm_hit=...)` on the kernels;
+     `assemble(hmm_hit=...)` on the kernels; 6d (run between 6b and 6c)
+     `Mesh(8, group=g)` over an NCCL process group of one rank
+     (`launch.mesh.make_data_mesh` in this process, the exchanges NCCL
+     all-to-alls): 6a's `assemble` and 6b's `assemble_stream` again,
+     counts reset just before each and read just after, each equal to
+     its 6a or 6b run bit for bit (contigs, alive, scaffold sequences,
+     every IterationStats field, the overflow dict, the stream stats),
+     the same kernels launched, wall and peak memory beside 6a's and
+     6b's, and the NCCL all_to_all, all_gather and all_reduce counted in
+     a profiled `assemble`;
   8. small inputs on the card against the same runs on the CPU (all
      paths, `low_memory=True`, and a checkpointed `assemble_stream` whose
      second run resumes every k);
@@ -1418,7 +1427,7 @@ def assert_no_overflow(out, what):
         raise AssertionError(f"{what}: overflow {out['overflow']}")
 
 
-def phase_mesh(api, ops, reads, comm, path2, path3):
+def phase_mesh(api, ops, reads, comm, path2, path3, tmp):
     """Path 6: the Mesh context, 8 shards on the card, each shard's stage
     on its row block, the owner exchanges as transposes.  6a `assemble`
     with path 2's plan, 6b `assemble_stream` from path 3's FASTQ with
@@ -1508,10 +1517,8 @@ def phase_mesh(api, ops, reads, comm, path2, path3):
     assert_same_assembly(out, p_out, "Mesh(8) assemble (kernels vs plain)")
     log("path 6a plain path: identical " + ", ".join(ASSEMBLE_KEYS)
         + ", stats")
-    path6a = dict(plan=plan, peak=peak, stats=out["stats"],
-                  alive=out["alive"].cpu(),
-                  scaffold_seqs=type(out["scaffold_seqs"])(
-                      *(x.cpu() for x in out["scaffold_seqs"])))
+    path6a = dict(plan=plan, peak=peak, wall=wall, launches=launches,
+                  **host_result(out))
     del out, p_out
     log(f"path 6a: {time.perf_counter() - t_path:.1f} s")
 
@@ -1545,9 +1552,9 @@ def phase_mesh(api, ops, reads, comm, path2, path3):
             "Mesh(8) assemble_stream")
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
+    swall = sum(t for t, _ in sclock.stages.values())
     log(f"launches in Mesh(8) assemble_stream: {launches}; peak "
-        f"{peak / 1e9:.2f} GB; wall "
-        f"{sum(t for t, _ in sclock.stages.values()):.3f} s (path 3: "
+        f"{peak / 1e9:.2f} GB; wall {swall:.3f} s (path 3: "
         f"{path3['wall']:.3f} s); overflow {st['overflow']}")
     check_path_kernels(launches, PATH3_KERNELS, "path 6b")
     want_sw = 3 * path3["n_batches"] * 2 * S
@@ -1568,6 +1575,8 @@ def phase_mesh(api, ops, reads, comm, path2, path3):
             f"{s.n_contigs}; {sst.occurrences_admitted}/"
             f"{sst.occurrences_total} occurrences admitted, route overflow "
             f"{sst.route_overflow}")
+    path6b = dict(plan=splan, peak=peak, wall=swall, launches=launches,
+                  **host_result(st))
     del st
     records += [hold_against_plain(row, call, ops, launches[call[1]],
                                    "mesh_stream",
@@ -1575,6 +1584,13 @@ def phase_mesh(api, ops, reads, comm, path2, path3):
                 for row, call in rec.calls.items()]
     del rec
     log(f"path 6b: {time.perf_counter() - t_sub:.1f} s")
+
+    # ---- 6d: Mesh(8) over an NCCL process group ----
+    t_sub = time.perf_counter()
+    phase_mesh_group(Assembler, ops, reads, path3["src"], path6a, path6b,
+                     tmp)
+    del path6b
+    log(f"path 6d: {time.perf_counter() - t_sub:.1f} s")
 
     # ---- 6c: the profile-HMM scorer on path 2's contigs ----
     t_sub = time.perf_counter()
@@ -1635,6 +1651,136 @@ def phase_mesh(api, ops, reads, comm, path2, path3):
     log(f"path 6c: {time.perf_counter() - t_sub:.1f} s")
     log(f"path 6: {time.perf_counter() - t_path:.1f} s")
     return records, path6a
+
+
+def host_result(out) -> dict:
+    """What path 6d holds a group run to, on the host: contigs, alive,
+    scaffold sequences, stats, overflow (and stream stats)."""
+    keep = {key: type(out[key])(*(x.cpu() for x in out[key]))
+            for key in ("contigs", "scaffold_seqs")}
+    return dict(keep, alive=out["alive"].cpu(), stats=out["stats"],
+                overflow=out["overflow"],
+                stream_stats=out.get("stream_stats"))
+
+
+def same_group_result(got, want, what):
+    for key in ("contigs", "scaffold_seqs", "alive"):
+        assert_same(tuple(got[key]) if key != "alive" else got[key],
+                    tuple(want[key]) if key != "alive" else want[key],
+                    f"{what}: {key}")
+    for key in ("stats", "overflow", "stream_stats"):
+        if got.get(key) != want.get(key):
+            raise AssertionError(f"{what}: {key} differ: {got.get(key)} "
+                                 f"against {want.get(key)}")
+
+
+COLLECTIVES = ("all_to_all", "all_gather", "all_reduce")
+
+
+def count_collectives(prof) -> dict:
+    """{collective: [host calls, device kernels]} of the NCCL collectives
+    in a profile: the process group's host ops (`c10d::alltoall_base_`,
+    `nccl:all_to_all`, ...) and NCCL's kernels on the card."""
+    from torch.autograd import DeviceType
+
+    counts = {c: [0, 0] for c in COLLECTIVES}
+    for e in prof.key_averages():
+        key = e.key.lower()
+        flat = key.replace("_", "")
+        for c in COLLECTIVES:
+            if c.replace("_", "") not in flat:
+                continue
+            if e.device_type == DeviceType.CUDA and "nccl" in key:
+                counts[c][1] += e.count
+            elif e.device_type == DeviceType.CPU and (
+                    key.startswith("nccl:") or key.startswith("c10d::")):
+                counts[c][0] += e.count
+    return counts
+
+
+def phase_mesh_group(Assembler, ops, reads, src, path6a, path6b, tmp):
+    """Path 6d: `Mesh(8, group=g)` over an NCCL process group of one rank
+    (`launch.mesh.make_data_mesh`, in this process), its 8 shards on the
+    rank's card, the owner exchanges NCCL `all_to_all`s, the gathers and
+    overflow sums NCCL `all_gather`s and `all_reduce`s: path 6a's
+    `assemble` and path 6b's `assemble_stream` again, each equal to its
+    6a or 6b run bit for bit (contigs, alive, scaffold sequences, every
+    IterationStats field, the overflow dict, and the stream stats), each
+    kernel launched as often as on 6a or 6b, and the collectives counted
+    in a profiled `assemble`."""
+    import torch.distributed as tdist
+
+    from repro_torch.api import Mesh
+    from repro_torch.launch import mesh as launch_mesh
+
+    S = MESH_SHARDS
+    # one rank on one host: NCCL's bootstrap stays on the loopback device
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    local_rank = os.environ.get("LOCAL_RANK")  # join_group sets it
+    launch_mesh.join_group(0, 1, device="cuda",
+                           init_file=os.path.join(tmp, "nccl_store"))
+    try:
+        mesh = launch_mesh.make_data_mesh(S)
+        backend = tdist.get_backend(mesh.group)
+        log(f"path 6d: make_data_mesh({S}): backend {backend}, world size "
+            f"{mesh.world_size}, rank {mesh.rank} on {mesh.device} with "
+            f"shards {list(mesh.shards)}")
+        if (backend, mesh.world_size, str(mesh.device)) != (
+                "nccl", 1, f"cuda:{torch.cuda.current_device()}"):
+            raise AssertionError("path 6d's mesh is not one NCCL rank on "
+                                 "its card")
+        runs = (("assemble", path6a, PATH2_KERNELS, "mer_walk",
+                 assemble_label,
+                 lambda ctx, hook: Assembler(path6a["plan"], ctx).assemble(
+                     reads, hook=hook)),
+                ("assemble_stream", path6b, PATH3_KERNELS, "sw_extend",
+                 stream_label,
+                 lambda ctx, hook: Assembler(path6b["plan"], ctx)
+                 .assemble_stream(src, hook=hook)))
+        for what, want, kernels, kernel, label, run in runs:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            out, clock = run_clocked(
+                lambda hook: run(Mesh(S, group=mesh.group), hook),
+                StageClock(ops, kernel, label), f"mesh group {what}",
+                f"Mesh({S}, group) {what}")
+            launches = dict(ops.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated()
+            wall = sum(t for t, _ in clock.stages.values())
+            log(f"path 6d {what}: launches {launches}; wall {wall:.3f} s "
+                f"(6{'a' if what == 'assemble' else 'b'}: "
+                f"{want['wall']:.3f} s); peak {peak / 1e9:.2f} GB "
+                f"({want['peak'] / 1e9:.2f} GB); overflow {out['overflow']}")
+            check_path_kernels(launches, kernels, f"path 6d {what}")
+            if launches != want["launches"]:
+                raise AssertionError(
+                    f"path 6d {what}: launches {launches} differ from the "
+                    f"single-process run's {want['launches']}")
+            same_group_result(host_result(out), want,
+                              f"path 6d {what} (group vs one process)")
+            log(f"path 6d {what}: contigs, alive, scaffold_seqs, stats, "
+                f"overflow{', stream_stats' if want['stream_stats'] else ''}"
+                f" equal to the single-process Mesh({S})")
+            del out
+        prof, _ = profile(
+            lambda: Assembler(path6a["plan"], Mesh(S, group=mesh.group))
+            .assemble(reads), f"Mesh({S}, group) assemble")
+        counts = count_collectives(prof)
+        del prof
+        log("path 6d collectives in a profiled assemble (host calls, NCCL "
+            "kernels on the card): " + "; ".join(
+                f"{c} {h}, {d}" for c, (h, d) in counts.items()))
+        missing = [c for c, (h, _) in counts.items() if h == 0]
+        if missing:
+            raise AssertionError(f"path 6d: no NCCL {missing} in the "
+                                 f"profile")
+    finally:
+        tdist.destroy_process_group()
+        if local_rank is None:
+            os.environ.pop("LOCAL_RANK", None)
+        else:
+            os.environ["LOCAL_RANK"] = local_rank
 
 
 def phase_small(api, mgsim, ExtensionPolicy):
@@ -3767,7 +3913,7 @@ def main(argv=None) -> int:
                                             tmp)
         records += path3_records
         mesh_records, path6a = phase_mesh(api, ops, reads, comm, path2,
-                                          path3)
+                                          path3, tmp)
         records += mesh_records
         small = phase_small(api, mgsim, ExtensionPolicy)
         small_stream = phase_small_stream(api, small["reads"])

@@ -14,6 +14,11 @@ the global layout, so the Assembler never branches on the context.
     contig-scale graph work once.  Its shards run one after another on
     one device, each on its row block, the exchange a transpose, so each
     shard computes what the reference's shard computes on its own device.
+    `Mesh(num_shards, group=g)` spreads the shards over the W ranks of a
+    process group, one device a rank (`launch.mesh`): rank r holds shards
+    [r*S/W, (r+1)*S/W), the exchanges are NCCL (or gloo) all-to-alls,
+    and the contig-scale work runs replicated on every rank, which all
+    return the same result.
 
 Both run on the CUDA card unless the caller asks for the CPU, and never
 fall back: without a visible card and without `device="cpu"` they raise.
@@ -27,6 +32,8 @@ import torch
 
 from repro_torch.core import alignment, kmer_analysis, local_assembly, \
     scaffolding
+from repro_torch.core.exchange import DataMesh
+from repro_torch.launch.mesh import group_mesh
 
 
 def _device(device, who: str) -> torch.device:
@@ -218,21 +225,35 @@ class Mesh(ExecutionContext):
 
     Read-proportional stages run per shard through `repro_torch.dist`;
     k-mer and link state move through the owner exchanges; contig-scale
-    graph work runs once.  The shards run on one device: the CUDA card
-    unless `device="cpu"`; without a visible card and without it, raises.
+    graph work runs once.  Without a group the shards run on one device:
+    the CUDA card unless `device="cpu"`; without a visible card and
+    without it, raises.  `group`, a `torch.distributed` process group
+    (`launch.mesh.make_data_mesh(S).group`), spreads them over its W
+    ranks, W dividing num_shards: each rank holds its shards' read rows
+    and owner tables on its card `cuda:{local_rank}` over NCCL, or on the
+    CPU over gloo with `device="cpu"`, and every rank returns the same
+    result.
     """
 
-    def __init__(self, num_shards: int = 8, *, device=None):
+    def __init__(self, num_shards: int = 8, *, device=None, group=None):
         if num_shards < 1:
             raise ValueError(f"Mesh needs num_shards >= 1, got {num_shards}")
         self.num_shards = int(num_shards)
-        self.device = _device(device, "Mesh")
+        if group is None:
+            self.data_mesh = DataMesh(self.num_shards,
+                                      _device(device, "Mesh"))
+        else:
+            self.data_mesh = group_mesh(self.num_shards, group,
+                                        device=device)
+        self.device = self.data_mesh.device
+        self.group = group
         self._reset_overflow()
 
     def spawn(self) -> "Mesh":
-        # the device and the shard count carry over; per-run bindings
-        # (plan, sharded reads, checkpoints, overflow) start fresh
-        return Mesh(num_shards=self.num_shards, device=self.device)
+        # the device, the shard count and the group carry over; per-run
+        # bindings (plan, sharded reads, checkpoints, overflow) start fresh
+        return Mesh(num_shards=self.num_shards, device=self.device,
+                    group=self.group)
 
     def _adapt_plan(self, plan, constructor: str):
         """Validate a plan for this shard count (in-memory and streaming).
@@ -254,9 +275,10 @@ class Mesh(ExecutionContext):
     def prepare(self, reads, plan) -> None:
         from repro_torch.dist import pipeline as dist
 
-        self.reads = reads.to(self.device)  # original layout: scaffolding
         self.plan = self._adapt_plan(plan, "from_dataset")
-        self.sharded = dist.shard_reads(self.reads, self.num_shards)
+        # the rank's shards' rows only, cut before they reach the device
+        self.sharded = dist.shard_reads(reads, self.num_shards,
+                                        self.data_mesh.shards, self.device)
         self._reset_overflow()
 
     def kmer_set(self, k: int, prev):
@@ -272,7 +294,7 @@ class Mesh(ExecutionContext):
         # route_capacity: the plan's explicit override if any, else the
         # stage derives it a round (contig-carrying rounds need wider lanes)
         kset_sh, route_ovf, table_ovf = stages.sharded_kmer_analysis(
-            self.sharded, self.num_shards, k=k,
+            self.sharded, self.data_mesh, k=k,
             pre_capacity=plan.pre_cap,
             capacity=plan.shard_table_cap,
             route_capacity=plan.route_capacity,
@@ -283,7 +305,8 @@ class Mesh(ExecutionContext):
         route_ovf, table_ovf = int(route_ovf), int(table_ovf)
         self._note_overflow("kmer_route", route_ovf)
         self._note_overflow("kmer_table", table_ovf)
-        merged = dist.gather_ksets(kset_sh, capacity=plan.kmer_capacity)
+        merged = dist.gather_ksets(kset_sh, capacity=plan.kmer_capacity,
+                                   mesh=self.data_mesh)
         del kset_sh
         gather_ovf = bool(merged["overflow"])
         self._note_overflow("kmer_gather", gather_ovf)
@@ -303,7 +326,7 @@ class Mesh(ExecutionContext):
             contigs, alive, seed_len=seed_len, capacity=self.plan.seed_cap,
             backend=self.plan.kernel_backend)
         return stages.sharded_align(
-            self.sharded, contigs, sidx, self.num_shards,
+            self.sharded, contigs, sidx, self.data_mesh,
             seed_len=seed_len, stride=self.plan.seed_stride,
             gapped=self.plan.gapped_align,
             backend=self.plan.kernel_backend)
@@ -312,7 +335,7 @@ class Mesh(ExecutionContext):
         from repro_torch.dist import stages
 
         extended, ovf = stages.sharded_extend(
-            self.sharded, contigs, alive, al, self.num_shards,
+            self.sharded, contigs, alive, al, self.data_mesh,
             mer_sizes=self.plan.ladder(k),
             capacity=self.plan.walk_capacity,
             max_ext=self.plan.max_ext,
@@ -325,7 +348,7 @@ class Mesh(ExecutionContext):
         from repro_torch.dist import stages
 
         cands, ovf = stages.sharded_link_candidates(
-            self.sharded, al, contigs, alive, self.num_shards,
+            self.sharded, al, contigs, alive, self.data_mesh,
             out_factor=self.plan.localize_out_factor)
         self._note_overflow("localize_pairs", ovf)
         return cands
@@ -342,7 +365,7 @@ class Mesh(ExecutionContext):
 
         plan = self.plan
         run, sstats = stream_analysis.sharded_streaming_kmer_analysis(
-            batches, self.num_shards, k=k,
+            batches, self.data_mesh, k=k,
             capacity=plan.shard_table_cap,
             bloom_bits=plan.bloom_slots,
             pre_capacity=plan.pre_cap,
@@ -379,9 +402,10 @@ class Mesh(ExecutionContext):
     def align_batch(self, batch, contigs, sidx, seed_len: int):
         from repro_torch.dist import pipeline as dist, stages
 
-        sharded = dist.shard_reads(batch, self.num_shards)
+        sharded = dist.shard_reads(batch, self.num_shards,
+                                   self.data_mesh.shards)
         al = stages.sharded_align(
-            sharded, contigs, sidx, self.num_shards,
+            sharded, contigs, sidx, self.data_mesh,
             seed_len=seed_len, stride=self.plan.seed_stride,
             gapped=self.plan.gapped_align,
             backend=self.plan.kernel_backend)

@@ -9,13 +9,17 @@ per-destination buffers.  Here:
     scatter into a [S * capacity] send buffer (capacity-padded, like MoE)
     exchange                         ->  each shard holds what it owns
 
-On one card the S shards live on a leading shard axis of one process, so
-the exchange of the reference's tiled `all_to_all` is a transpose: the
-send buffers of all senders form [S_sender, S_dest, capacity, ...] and
-receiver d takes [:, d], whose rows [p * capacity, (p+1) * capacity) are
-sender p's.  `route` has the reference's two forms: one shard's call
-without exchange (`sharded=False`: the reference's `axis_name=None`,
-source shard 0) and the exchanged form over the leading shard axis
+The S shards are spread over the W ranks of a `DataMesh` (built from a
+process group by `launch.mesh`), S/W shards a rank on a leading shard
+axis.  The send buffers of a rank's
+senders form [S/W sender, W rank, S/W dest, capacity, ...]; one
+`all_to_all_single` a payload leaf moves block [:, r] to rank r, and
+receiver d takes, for every sender p in global order, sender p's rows
+[p * capacity, (p+1) * capacity).  With one process holding every shard
+(no group) the all-to-all is the identity and the exchange a transpose.
+`route` has the reference's two forms: one shard's call without
+exchange (`sharded=False`: the reference's `axis_name=None`, source
+shard 0) and the exchanged form over the leading shard axis
 (`sharded=True`).  Overflow is reported, never dropped silently.
 
 `fetch` composes two routes into the paper's remote lookup: route
@@ -23,9 +27,77 @@ queries to owners, answer there, route the answers back.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import dataclasses
+from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
+
+
+def _wire(x: torch.Tensor) -> torch.Tensor:
+    """A tensor of rows as the data collectives carry it: its bytes (gloo
+    takes neither bool nor int16)."""
+    return x.contiguous().view(torch.uint8)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DataMesh:
+    """S shards over the W ranks of `group`; rank `rank` holds `shards`
+    on `device`.  group=None: one process holds all S shards, and the
+    collectives are the identity (the reference's `shard_map` stages run
+    over one device's shard axis)."""
+
+    num_shards: int
+    device: Optional[torch.device] = None
+    group: Optional[dist.ProcessGroup] = None
+    rank: int = 0
+    world_size: int = 1
+
+    @property
+    def local_shards(self) -> int:
+        return self.num_shards // self.world_size
+
+    @property
+    def shards(self) -> range:
+        """The global ids of this rank's shards."""
+        n = self.local_shards
+        return range(self.rank * n, (self.rank + 1) * n)
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """x [W, ...]: row r goes to rank r; returns [W, ...] whose row r
+        came from rank r (one `all_to_all_single`, equal splits)."""
+        if self.group is None:
+            return x
+        send = _wire(x)
+        out = torch.empty_like(send)
+        dist.all_to_all_single(out, send, group=self.group)
+        return out.view(x.dtype)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's x (one shape on every rank) concatenated on dim 0
+        in rank order: the reference's sharded array, replicated."""
+        if self.group is None:
+            return x
+        send = _wire(x)
+        parts = [torch.empty_like(send) for _ in range(self.world_size)]
+        dist.all_gather(parts, send, group=self.group)
+        return torch.cat(parts).view(x.dtype)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """An integer count summed over the ranks (the reference's
+        `psum`)."""
+        return self._reduce(x, dist.ReduceOp.SUM)
+
+    def min(self, x: torch.Tensor) -> torch.Tensor:
+        """An integer's least value over the ranks."""
+        return self._reduce(x, dist.ReduceOp.MIN)
+
+    def _reduce(self, x: torch.Tensor, op) -> torch.Tensor:
+        if self.group is None:
+            return x
+        out = x.reshape(1).to(self.device, copy=True)
+        dist.all_reduce(out, op=op, group=self.group)
+        return out.reshape(x.shape)
 
 
 class RouteResult(NamedTuple):
@@ -104,48 +176,55 @@ def send(dest, payload, valid, *, num_shards: int, capacity: int,
                        src_index=ibuf, overflow=overflow)
 
 
-def exchange(sends: list) -> list:
-    """The all-to-all of S senders' send buffers: receiver d gets, for
-    each sender p in order, sender p's rows bound for d.  The overflow of
-    every receiver is the sum over senders (the reference's psum)."""
-    S = len(sends)
+def exchange(sends: list, mesh: DataMesh | None = None) -> list:
+    """The all-to-all of the send buffers of a rank's senders (all S
+    without a mesh): receiver d, one of the rank's shards, gets for each
+    sender p of the mesh in order sender p's rows bound for d.  The
+    overflow of every receiver is the sum over all senders (the
+    reference's psum)."""
+    n = len(sends)
+    mesh = DataMesh(n) if mesh is None else mesh
+    W = mesh.world_size
 
     def a2a(parts):
-        stacked = torch.stack(parts)  # [S_sender, S * cap, ...]
+        stacked = torch.stack(parts)  # [n sender, S * cap, ...]
         tail = tuple(stacked.shape[2:])
-        cap = stacked.shape[1] // S
-        t = stacked.reshape((S, S, cap) + tail).transpose(0, 1)
-        return list(t.reshape((S, S * cap) + tail).unbind(0))
+        cap = stacked.shape[1] // (W * n)
+        t = stacked.reshape((n, W, n, cap) + tail).transpose(0, 1)
+        t = mesh.all_to_all(t)  # [W source rank, n sender, n dest, cap]
+        t = t.permute((2, 0, 1) + tuple(range(3, t.dim())))
+        return list(t.reshape((n, W * n * cap) + tail).unbind(0))
 
     trees = [tuple(s[:4]) for s in sends]  # payload, valid, src_*
     cols = [a2a(list(leaves)) for leaves in zip(*map(_leaves, trees))]
-    overflow = torch.stack([s.overflow for s in sends]).sum()
+    overflow = mesh.sum(torch.stack([s.overflow for s in sends]).sum())
     return [RouteResult(*_rebuild(trees[0], iter([c[d] for c in cols])),
-                        overflow=overflow) for d in range(S)]
+                        overflow=overflow) for d in range(n)]
 
 
 def route(dest, payload, valid, *, num_shards: int, capacity: int,
-          sharded: bool = False):
+          sharded: bool = False, mesh: DataMesh | None = None):
     """Send each item to shard dest[i]; receive what a shard owns.
 
     sharded=False: one shard's call without exchange (the reference's
       `axis_name=None`): dest [n], payload tuple of [n, ...], valid [n];
       returns its RouteResult with leading dimension S*capacity, rows
       [p*capacity, (p+1)*capacity) bound for shard p, src_shard 0.
-    sharded=True: the exchanged form over a leading shard axis: dest
-      [S, n], payload leaves [S, n, ...], valid [S, n]; returns one
-      RouteResult whose leaves are [S, S*capacity, ...], receiver-major:
-      receiver d's rows [p*capacity, (p+1)*capacity) arrived from shard
-      p, src_shard p.  `overflow` sums the senders'.
+    sharded=True: the exchanged form over a leading axis of the shards
+      that `mesh` puts on this rank (all S without a mesh): dest [S/W, n],
+      payload leaves [S/W, n, ...], valid [S/W, n]; returns one
+      RouteResult whose leaves are [S/W, S*capacity, ...],
+      receiver-major: receiver d's rows [p*capacity, (p+1)*capacity)
+      arrived from shard p, src_shard p.  `overflow` sums all senders'.
     """
     if not sharded:
         return send(dest, payload, valid, num_shards=num_shards,
                     capacity=capacity)
-    S = dest.shape[0]
-    sends = [send(dest[s], _tree_map(lambda x: x[s], tuple(payload)),
-                  valid[s], num_shards=num_shards, capacity=capacity,
-                  src_shard=s) for s in range(S)]
-    return _stack_results(exchange(sends))
+    mesh = DataMesh(num_shards) if mesh is None else mesh
+    sends = [send(dest[i], _tree_map(lambda x: x[i], tuple(payload)),
+                  valid[i], num_shards=num_shards, capacity=capacity,
+                  src_shard=s) for i, s in enumerate(mesh.shards)]
+    return _stack_results(exchange(sends, mesh))
 
 
 def _stack_trees(trees: list):
@@ -197,35 +276,38 @@ def compact(payload, valid, *, capacity: int):
 
 
 def fetch(answer_fn, query_key, query_valid, *, num_shards: int,
-          capacity: int, owner_of, sharded: bool = False):
+          capacity: int, owner_of, sharded: bool = False,
+          mesh: DataMesh | None = None):
     """Remote lookup: route queries to owners, answer, route back.
 
     answer_fn: (key tuple, valid) -> answer tuple of [m, ...] tensors,
       evaluated on an owner shard for the queries it received.
     owner_of: key tuple -> [n] int32 owner shard.
     sharded=False is one shard's call without exchange (the reference's
-    `axis_name=None`); sharded=True takes and returns a leading shard
-    axis, with answer_fn and owner_of called once a shard.
-    Returns (answers aligned with the queries, got mask).
+    `axis_name=None`); sharded=True takes and returns a leading axis of
+    the rank's shards (`route`), with answer_fn and owner_of called once
+    a shard.  Returns (answers aligned with the queries, got mask).
     """
     query_key = tuple(query_key)
     if not sharded:
         return _fetch_local(answer_fn, query_key, query_valid,
                             num_shards=num_shards, capacity=capacity,
                             owner_of=owner_of)
-    S, n = query_valid.shape
+    mesh = DataMesh(num_shards) if mesh is None else mesh
+    local, n = query_valid.shape
     dest = torch.stack([owner_of(tuple(x[s] for x in query_key))
-                        for s in range(S)])
+                        for s in range(local)])
     sent = route(dest, query_key, query_valid, num_shards=num_shards,
-                 capacity=capacity, sharded=True)
+                 capacity=capacity, sharded=True, mesh=mesh)
     answers = _stack_trees([tuple(answer_fn(
         tuple(x[d] for x in sent.payload), sent.valid[d]))
-        for d in range(S)])
+        for d in range(local)])
     back = route(sent.src_shard, (answers, sent.src_index), sent.valid,
-                 num_shards=num_shards, capacity=capacity, sharded=True)
+                 num_shards=num_shards, capacity=capacity, sharded=True,
+                 mesh=mesh)
     ans_back, idx_back = back.payload
     outs = [_unpermute(tuple(a[s] for a in ans_back), idx_back[s],
-                       back.valid[s], n) for s in range(S)]
+                       back.valid[s], n) for s in range(local)]
     return _stack_trees([o[0] for o in outs]), torch.stack(
         [o[1] for o in outs])
 

@@ -3,9 +3,11 @@
 `repro_torch.core` is the single-shard pipeline; this package shards it
 with the paper's three distributed mechanisms: the owner exchange of
 k-mer stores (§II-A), read localization (§II-I), and the per-shard
-capacity discipline that keeps weak scaling flat (Table II).  On one card
-the shards run in one process over a leading shard axis, the exchange a
-transpose (`core.exchange`).
+capacity discipline that keeps weak scaling flat (Table II).  The shards
+run over a leading shard axis: all of them in one process on one card,
+the exchange a transpose, or S/W a rank over the W ranks of a process
+group (`core.exchange.DataMesh`), the exchange an all-to-all
+(`core.exchange`).
 """
 from . import capacity, pipeline
 from . import stages  # noqa: F401  (distributed stages beyond k-mer analysis)

@@ -13,9 +13,10 @@ shard axis (mirrors `repro.dist.pipeline`).
     shards, and merge owner tables back into one key-sorted table.
 
 The reference runs one shard a device under `shard_map`; here the S
-shards run one after another in one process on row block s of the
-shard-major arrays (`dist.stages`).  A "mesh" argument is the shard
-count, or a `Mesh` context (anything with `num_shards`).
+shards spread over the W ranks of a `core.exchange.DataMesh`, and a rank
+runs its S/W shards one after another on row block i of its shard-major
+arrays (`dist.stages`).  A "mesh" argument is the shard count (one
+process, every shard), a `DataMesh`, or a `Mesh` context.
 """
 from __future__ import annotations
 
@@ -27,11 +28,15 @@ from repro_torch.core import kmer_analysis
 from repro_torch.core.kmer_analysis import ExtensionPolicy
 from repro_torch.core.types import INVALID_BASE, KmerSet, widen
 from repro_torch.kernels import ops
+from repro_torch.core.exchange import DataMesh
 
 
-def mesh_shards(mesh) -> int:
-    """Shard count of a mesh argument (an int or a `Mesh` context)."""
-    return int(getattr(mesh, "num_shards", mesh))
+def data_mesh_of(mesh) -> DataMesh:
+    """The `DataMesh` of a mesh argument: a `DataMesh`, a `Mesh` context's
+    own, or, for a shard count, one process holding every shard."""
+    if isinstance(mesh, DataMesh):
+        return mesh
+    return getattr(mesh, "data_mesh", None) or DataMesh(int(mesh))
 
 
 class ShardedReads(NamedTuple):
@@ -59,23 +64,33 @@ class ShardedReads(NamedTuple):
         return self.bases.shape[1]
 
 
-def shard_reads(reads, num_shards: int) -> ShardedReads:
-    """Pad a ReadSet so its rows split evenly over `num_shards` shards."""
+def shard_reads(reads, num_shards: int, shards: range | None = None,
+                device=None) -> ShardedReads:
+    """Pad a ReadSet so its rows split evenly over `num_shards` shards.
+
+    `shards`: keep only these shards' row blocks (a rank's shards of a
+    mesh; default all), cut before anything moves to `device` (default:
+    the reads' device), so a rank never holds the other ranks' rows.
+    """
     R, L = reads.bases.shape
-    dev = reads.bases.device
-    r_pad = -(-R // num_shards) * num_shards
-    pad = r_pad - R
-    valid = torch.arange(r_pad, device=dev) < R
+    per = -(-R // num_shards)
+    shards = range(num_shards) if shards is None else shards
+    lo, hi = shards.start * per, shards.stop * per
+    pad = hi - max(lo, min(hi, R))
+    move = (lambda x: x) if device is None else (lambda x: x.to(device))
+    dev = reads.bases.device if device is None else torch.device(device)
+    valid = torch.arange(lo, hi, device=dev) < R
+    rows = tuple(move(x[lo:min(hi, R)])
+                 for x in (reads.bases, reads.lengths, reads.mate))
     if pad == 0:
-        return ShardedReads(bases=reads.bases, lengths=reads.lengths,
-                            mate=reads.mate, insert_size=reads.insert_size,
-                            valid=valid)
+        return ShardedReads(bases=rows[0], lengths=rows[1], mate=rows[2],
+                            insert_size=reads.insert_size, valid=valid)
     return ShardedReads(
-        bases=torch.cat([reads.bases, torch.full(
+        bases=torch.cat([rows[0], torch.full(
             (pad, L), INVALID_BASE, dtype=torch.uint8, device=dev)]),
-        lengths=torch.cat([reads.lengths, torch.zeros(
+        lengths=torch.cat([rows[1], torch.zeros(
             (pad,), dtype=torch.int32, device=dev)]),
-        mate=torch.cat([reads.mate, torch.full(
+        mate=torch.cat([rows[2], torch.full(
             (pad,), -1, dtype=torch.int32, device=dev)]),
         insert_size=reads.insert_size,
         valid=valid,
@@ -107,47 +122,54 @@ def distributed_kmer_analysis(
     """Alg. 2: sharded k-mer counting with owner exchange.
 
     Returns (kset, route_overflow, table_overflow): kset has flat
-    [S * capacity] arrays, rows [s*capacity, (s+1)*capacity) shard s's
-    owner table with live entries packed to the front in key order.
+    [S/W * capacity] arrays, rows [i*capacity, (i+1)*capacity) the owner
+    table of the rank's i-th shard with live entries packed to the front
+    in key order.
     """
     from . import stages
 
-    S = mesh_shards(mesh)
+    m = data_mesh_of(mesh)
     return stages.sharded_kmer_analysis(
-        shard_reads(reads, S), S, k=k,
+        shard_reads(reads, m.num_shards, m.shards), m, k=k,
         pre_capacity=pre_capacity, capacity=capacity,
         route_capacity=route_capacity, min_count=min_count, policy=policy,
         backend=backend,
     )
 
 
-def gather_ksets(kset: KmerSet, *, capacity: int) -> dict:
+def gather_ksets(kset: KmerSet, *, capacity: int, mesh=None) -> dict:
     """Merge per-shard owner tables into one key-sorted count table.
 
-    Ownership is total, so each live key is on exactly one shard and the
-    merge is a re-sort; `n_unique > capacity` is flagged in the returned
-    dict's `overflow`.
+    `kset` holds the owner tables of the shards `mesh` puts on this rank
+    (all of them without a mesh); they all_gather over the mesh's ranks
+    first, so the merged table is replicated.  Ownership is total, so
+    each live key is on exactly one shard and the merge is a re-sort;
+    `n_unique > capacity` is flagged in the returned dict's `overflow`.
     """
-    return kmer_analysis.aggregate_weighted(
-        kset.hi, kset.lo, kset.count, kset.left_cnt, kset.right_cnt,
-        kset.used, capacity=capacity,
-    )
+    cols = (kset.hi, kset.lo, kset.count, kset.left_cnt, kset.right_cnt,
+            kset.used)
+    if mesh is not None:
+        cols = tuple(map(data_mesh_of(mesh).gather, cols))
+    return kmer_analysis.aggregate_weighted(*cols, capacity=capacity)
 
 
 def localize_reads(reads, aln_contig, mesh, *, out_factor: int = 2):
     """Fig. 3: move each read to the shard owning its aligned contig
     (contig c is owned by shard c mod S; unaligned reads stay home).
 
-    Returns (localized ShardedReads of S * out_factor * (R/S) rows,
-    overflow): overflow counts reads cut at the route lanes or the
-    receiver block.
+    `reads` (and `aln_contig`) are the rows of the shards `mesh` puts on
+    this rank.  Returns (localized ShardedReads of out_factor times as
+    many rows, overflow): overflow counts reads cut at the route lanes or
+    the receiver block.
     """
     from . import stages
 
-    S = mesh_shards(mesh)
+    m = data_mesh_of(mesh)
     R = reads.bases.shape[0]
     dev = reads.bases.device
-    assert R % S == 0, f"reads rows {R} not divisible by {S}; use shard_reads"
+    assert R % m.local_shards == 0, (
+        f"reads rows {R} not divisible by {m.local_shards}; use "
+        f"shard_reads")
     valid = getattr(reads, "valid", None)
     if valid is None:
         valid = reads.lengths > 0
@@ -162,5 +184,5 @@ def localize_reads(reads, aln_contig, mesh, *, out_factor: int = 2):
                            mate=mate, insert_size=reads.insert_size,
                            valid=valid)
     localized, _, overflow = stages.localize_with(
-        sharded, aln, (), S, out_factor=out_factor)
+        sharded, aln, (), m, out_factor=out_factor)
     return localized, overflow

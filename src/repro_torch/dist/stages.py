@@ -1,14 +1,19 @@
 """Distributed pipeline stages (mirrors `repro.dist.stages`).
 
 Each `shard_map` body of the reference is the same per-shard function
-here, called for s in range(S) on row block s of the shard-major arrays:
-the reference's sharded inputs are sliced a shard, its replicated inputs
-are shared (one copy), `axis_index` is s and `psum` is a sum over the
-shards.  A stage with an exchange runs in two halves, every sender's
-bucketing, then the transpose of `core.exchange.exchange`, then every
-owner's reduce, so each shard's arithmetic is the reference's own and the
-outputs are the reference's bit for bit.  Overflow counters stay on the
-device, summed over shards; callers read them once a stage.
+here.  The S shards spread over the W ranks of a `core.exchange.DataMesh`
+(one process holding all S without a group): a rank calls it for each of
+its shards s, the i-th, on row block i of its shard-major arrays.  The
+reference's sharded inputs are sliced a shard, its replicated inputs are
+shared (one copy a rank), `axis_index` is s and `psum` is a sum over the
+rank's shards, then over the ranks (`DataMesh.sum`).  A stage with an
+exchange runs in two halves, every local sender's bucketing, then the
+all-to-all of `core.exchange.exchange`, then every local owner's reduce,
+so each shard's arithmetic is the reference's own and the outputs are
+the reference's bit for bit.  Where the reference's out_specs are
+sharded and the consumer is replicated contig-scale code, the rank's
+rows all_gather at the stage's end (`DataMesh.gather`).  Overflow
+counters stay on the device; callers read them once a stage.
 
   * `sharded_kmer_analysis`: Alg. 2 owner exchange, also carrying the
     previous round's contig k-mers (§II-H);
@@ -35,7 +40,7 @@ from repro_torch.core.scaffolding import candidate_links
 from repro_torch.core.types import ContigSet, INVALID_BASE, KmerSet, ReadSet
 
 from . import capacity as cap_lib
-from .pipeline import ShardedReads, kmer_owner, mesh_shards, shard_reads
+from .pipeline import ShardedReads, data_mesh_of, kmer_owner, shard_reads
 
 
 def _pad_rows(x, rows: int, fill):
@@ -46,10 +51,10 @@ def _pad_rows(x, rows: int, fill):
                                     dtype=x.dtype, device=x.device)])
 
 
-def _block(x, s: int, S: int):
-    """Row block s of S of a shard-major array."""
-    per = x.shape[0] // S
-    return x[s * per:(s + 1) * per]
+def _block(x, i: int, n: int):
+    """Row block i of n of a shard-major array."""
+    per = x.shape[0] // n
+    return x[i * per:(i + 1) * per]
 
 
 def _local_reads(bases, lengths, insert_size: int = 0) -> ReadSet:
@@ -92,24 +97,27 @@ def sharded_kmer_analysis(
 ):
     """Alg. 2 with optional §II-H contig-kmer injection.
 
-    reads: ShardedReads (or any ReadSet whose rows divide by S).
-    prev_contigs: optional (ContigSet, alive) of the previous round; its
-      k-mers enter the exchange as partials weighted by `contig_weight`,
-      shard s taking row block s of the contig rows padded to a multiple
-      of S.
+    reads: ShardedReads of the rank's shards (or any ReadSet whose rows
+      divide by S/W).
+    prev_contigs: optional (ContigSet, alive) of the previous round
+      (replicated); its k-mers enter the exchange as partials weighted by
+      `contig_weight`, shard s taking row block s of the contig rows
+      padded to a multiple of S.
     Returns (kset, route_overflow, table_overflow): kset with flat
-    [S * capacity] arrays, shard s's owner table in rows [s*capacity,
-    (s+1)*capacity); the overflows as device scalars summed over shards.
+    [S/W * capacity] arrays, the rank's i-th shard's owner table in rows
+    [i*capacity, (i+1)*capacity); the overflows as device scalars summed
+    over all shards.
     """
-    S = mesh_shards(mesh)
+    m = data_mesh_of(mesh)
+    S, n = m.num_shards, m.local_shards
     has_contigs = prev_contigs is not None
     if route_capacity is None:
         # contig-carrying rounds route two pre-combined tables a sender
         # (reads + §II-H pseudo-counts): lanes sized for both
         route_capacity = cap_lib.default_route_capacity(
             (2 if has_contigs else 1) * pre_capacity, S)
-    assert reads.bases.shape[0] % S == 0, (
-        f"reads rows {reads.bases.shape[0]} not divisible by {S}; "
+    assert reads.bases.shape[0] % n == 0, (
+        f"reads rows {reads.bases.shape[0]} not divisible by {n}; "
         f"use shard_reads")
     if has_contigs:
         contigs, calive = prev_contigs
@@ -118,9 +126,9 @@ def sharded_kmer_analysis(
         clens = _pad_rows(torch.where(calive, contigs.lengths, 0), c_pad, 0)
 
     sends, local_ovf = [], []
-    for s in range(S):
-        pre = _occurrence_table(_block(reads.bases, s, S),
-                                _block(reads.lengths, s, S), k=k,
+    for i, s in enumerate(m.shards):
+        pre = _occurrence_table(_block(reads.bases, i, n),
+                                _block(reads.lengths, i, n), k=k,
                                 capacity=pre_capacity, backend=backend)
         streams = [pre]
         ovf = pre["overflow"].to(torch.int32)
@@ -140,7 +148,7 @@ def sharded_kmer_analysis(
             num_shards=S, capacity=route_capacity, src_shard=s))
         local_ovf.append(ovf)
         del streams, pre
-    recv = exchange.exchange(sends)
+    recv = exchange.exchange(sends, m)
     del sends
     ksets, table_ovf = [], torch.stack(local_ovf).sum()
     for res in recv:
@@ -152,7 +160,7 @@ def sharded_kmer_analysis(
                                             policy=policy))
     kset = KmerSet(*(_cat(getattr(ks, f) for ks in ksets)
                      for f in KmerSet._fields))
-    return kset, recv[0].overflow, table_ovf
+    return kset, recv[0].overflow, m.sum(table_ovf)
 
 
 # ---------------------------------------------------------------------------
@@ -160,22 +168,25 @@ def sharded_kmer_analysis(
 # ---------------------------------------------------------------------------
 
 
-def _route_pre_tables(reads, S: int, *, k: int, pre_capacity: int,
+def _route_pre_tables(batch, m, *, k: int, pre_capacity: int,
                       route_capacity: int, keys: tuple, backend):
-    """Every shard pre-combines its block of a batch and routes the
-    `keys` columns of its table to their owners.  Returns (received
-    RouteResults a shard, the pre tables)."""
+    """Every shard of the rank pre-combines its block of a batch (every
+    rank holds the whole batch) and routes the `keys` columns of its
+    table to their owners.  Returns (received RouteResults a local
+    shard, the local pre tables)."""
+    S, n = m.num_shards, m.local_shards
+    reads = shard_reads(batch, S, m.shards)
     sends, pres = [], []
-    for s in range(S):
-        pre = _occurrence_table(_block(reads.bases, s, S),
-                                _block(reads.lengths, s, S), k=k,
+    for i, s in enumerate(m.shards):
+        pre = _occurrence_table(_block(reads.bases, i, n),
+                                _block(reads.lengths, i, n), k=k,
                                 capacity=pre_capacity, backend=backend)
         sends.append(exchange.send(
             kmer_owner(pre["hi"], pre["lo"], S),
             tuple(pre[key] for key in keys), pre["count"] > 0,
             num_shards=S, capacity=route_capacity, src_shard=s))
         pres.append(pre)
-    return exchange.exchange(sends), pres
+    return exchange.exchange(sends, m), pres
 
 
 def sharded_bloom_observe(
@@ -192,20 +203,21 @@ def sharded_bloom_observe(
 ):
     """Pass 1 of the streamed two-sighting rule for one batch.
 
-    The filters are owner-partitioned ([S, bloom_bits]; shard s holds the
-    bits of the keys it owns): each shard pre-combines its block of the
-    batch and routes (key, count) entries to the owners; an owner, after
-    an exact cross-sender aggregate, marks in f2 the keys already in its
-    f1 or arriving with a batch count >= 2, then inserts all of them into
-    f1.  Returns (f1_bits, f2_bits, route_overflow, table_overflow).
+    The filters are owner-partitioned ([S/W, bloom_bits] on a rank; its
+    i-th row holds the bits of the keys its i-th shard owns): each shard
+    pre-combines its block of the batch and routes (key, count) entries
+    to the owners; an owner, after an exact cross-sender aggregate, marks
+    in f2 the keys already in its f1 or arriving with a batch count >= 2,
+    then inserts all of them into f1.  Returns (f1_bits, f2_bits,
+    route_overflow, table_overflow).
     """
-    S = mesh_shards(mesh)
-    reads = shard_reads(batch, S)
+    m = data_mesh_of(mesh)
+    S = m.num_shards
     if route_capacity is None:
         route_capacity = cap_lib.default_route_capacity(pre_capacity, S)
     recv_cap = S * route_capacity
     recv, pres = _route_pre_tables(
-        reads, S, k=k, pre_capacity=pre_capacity,
+        batch, m, k=k, pre_capacity=pre_capacity,
         route_capacity=route_capacity, keys=("hi", "lo", "count"),
         backend=backend)
     f1_out, f2_out = [], []
@@ -225,8 +237,8 @@ def sharded_bloom_observe(
         f2_out.append(bloom.insert(f2, agg["hi"], agg["lo"],
                                    keys_ok & seen).bits)
         f1_out.append(bloom.insert(f1, agg["hi"], agg["lo"], keys_ok).bits)
-    table_ovf = torch.stack([p["overflow"].to(torch.int32)
-                             for p in pres]).sum()
+    table_ovf = m.sum(torch.stack([p["overflow"].to(torch.int32)
+                                   for p in pres]).sum())
     return (torch.stack(f1_out), torch.stack(f2_out), recv[0].overflow,
             table_ovf)
 
@@ -254,16 +266,17 @@ def sharded_stream_fold(
     and routes entries to their owners; an owner admits only keys its f2
     has seen twice and segment-reduces the admitted partials into its
     slice of the running table (`aggregate_weighted` over the
-    concatenation).  The running table is the flat [S * capacity] owner
-    layout of `sharded_kmer_analysis`.  Returns (run', (occ_total,
-    occ_admitted), route_overflow, table_overflow), device scalars.
+    concatenation).  The running table is the rank's flat [S/W *
+    capacity] owner layout of `sharded_kmer_analysis`.  Returns (run',
+    (occ_total, occ_admitted), route_overflow, table_overflow), device
+    scalars summed over all shards.
     """
-    S = mesh_shards(mesh)
-    reads = shard_reads(batch, S)
+    m = data_mesh_of(mesh)
+    S, n = m.num_shards, m.local_shards
     if route_capacity is None:
         route_capacity = cap_lib.default_route_capacity(pre_capacity, S)
     recv, pres = _route_pre_tables(
-        reads, S, k=k, pre_capacity=pre_capacity,
+        batch, m, k=k, pre_capacity=pre_capacity,
         route_capacity=route_capacity, keys=RUN_KEYS, backend=backend)
     occ_total = torch.stack([torch.where(p["count"] > 0, p["count"], 0)
                              .sum() for p in pres]).sum()
@@ -271,12 +284,12 @@ def sharded_stream_fold(
                              for p in pres]).sum()
     del pres
     news, admitted_sum = [], []
-    for s, res in enumerate(recv):
+    for i, res in enumerate(recv):
         rhi, rlo, rcnt, rl, rr = res.payload
-        f2 = bloom.BloomFilter(bits=f2_bits[s], num_hashes=num_hashes)
+        f2 = bloom.BloomFilter(bits=f2_bits[i], num_hashes=num_hashes)
         admitted = res.valid & bloom.query(f2, rhi, rlo)
         admitted_sum.append(torch.where(admitted, rcnt, 0).sum())
-        mine = {key: _block(run[key], s, S) for key in RUN_KEYS}
+        mine = {key: _block(run[key], i, n) for key in RUN_KEYS}
         new = kmer_analysis.aggregate_weighted(
             torch.cat([mine["hi"], rhi]), torch.cat([mine["lo"], rlo]),
             torch.cat([mine["count"], rcnt]),
@@ -285,9 +298,10 @@ def sharded_stream_fold(
             torch.cat([mine["count"] > 0, admitted]), capacity=capacity)
         table_ovf = table_ovf + new["overflow"].to(torch.int32)
         news.append(new)
-    new_run = {key: _cat(n[key] for n in news) for key in RUN_KEYS}
+    new_run = {key: _cat(t[key] for t in news) for key in RUN_KEYS}
     occ_admitted = torch.stack(admitted_sum).sum()
-    return new_run, (occ_total, occ_admitted), recv[0].overflow, table_ovf
+    return (new_run, (m.sum(occ_total), m.sum(occ_admitted)),
+            recv[0].overflow, m.sum(table_ovf))
 
 
 # ---------------------------------------------------------------------------
@@ -308,17 +322,18 @@ def sharded_align(
 ):
     """Align every read to the live contigs, one shard a read block,
     against the one contig set and seed index (the reference replicates
-    them; one copy serves every shard here).  Output in the global
-    shard-major layout."""
-    S = mesh_shards(mesh)
-    assert sharded.num_reads % S == 0
+    them; one copy a rank serves its shards here).  Output in the global
+    shard-major layout, gathered over the ranks."""
+    m = data_mesh_of(mesh)
+    n = m.local_shards
+    assert sharded.num_reads % n == 0
     insert_size = int(sharded.insert_size)
     parts = [alignment.align_reads(
-        _local_reads(_block(sharded.bases, s, S),
-                     _block(sharded.lengths, s, S), insert_size),
+        _local_reads(_block(sharded.bases, i, n),
+                     _block(sharded.lengths, i, n), insert_size),
         contigs, sidx, seed_len=seed_len, stride=stride, gapped=gapped,
-        backend=backend) for s in range(S)]
-    return alignment.Alignments(*(_cat(getattr(p, f) for p in parts)
+        backend=backend) for i in range(n)]
+    return alignment.Alignments(*(m.gather(_cat(getattr(p, f) for p in parts))
                                   for f in alignment.Alignments._fields))
 
 
@@ -338,28 +353,31 @@ def localize_with(
     """Fig. 3 localization that carries per-read payload to the new shard.
 
     Each read routes to the shard owning `dest_contig[r]` (c mod S; rows
-    with dest < 0 stay home), with the `payload` columns.  Returns
-    (localized ShardedReads, routed payload tuple, overflow): overflow
-    counts reads cut at the route lanes or the receiver block.
+    with dest < 0 stay home), with the `payload` columns.  `sharded`,
+    `dest_contig` and the payload are the rows of the rank's shards, and
+    so is what returns: (localized ShardedReads, routed payload tuple,
+    overflow): overflow counts reads cut at the route lanes or the
+    receiver block, over all shards.
     """
-    S = mesh_shards(mesh)
+    m = data_mesh_of(mesh)
+    S, n = m.num_shards, m.local_shards
     R = sharded.num_reads
-    assert R % S == 0
-    per = R // S
+    assert R % n == 0
+    per = R // n
     out_per = out_factor * per
     route_cap = min(per, -(-2 * out_per // S))
     dest_contig = dest_contig.to(torch.int32)[:R]
     insert_size = int(sharded.insert_size)
     cols = (sharded.bases, sharded.lengths) + tuple(payload)
     sends = []
-    for s in range(S):
-        dc = _block(dest_contig, s, S)
+    for i, s in enumerate(m.shards):
+        dc = _block(dest_contig, i, n)
         dest = torch.where(dc >= 0, dc % S, s).to(torch.int32)
         sends.append(exchange.send(
-            dest, tuple(_block(c, s, S) for c in cols),
-            _block(sharded.valid, s, S), num_shards=S, capacity=route_cap,
+            dest, tuple(_block(c, i, n) for c in cols),
+            _block(sharded.valid, i, n), num_shards=S, capacity=route_cap,
             src_shard=s))
-    recv = exchange.exchange(sends)
+    recv = exchange.exchange(sends, m)
     del sends
     outs, valids, compact_ovf = [], [], []
     for res in recv:
@@ -370,12 +388,12 @@ def localize_with(
         outs.append((rb,) + tuple(routed[1:]))
         valids.append(rv)
         compact_ovf.append(ovf)
-    overflow = recv[0].overflow + torch.stack(compact_ovf).sum()
-    merged = [_cat(o[i] for o in outs) for i in range(len(cols))]
+    overflow = recv[0].overflow + m.sum(torch.stack(compact_ovf).sum())
+    merged = [_cat(o[j] for o in outs) for j in range(len(cols))]
     dev = sharded.bases.device
     localized = ShardedReads(
         bases=merged[0], lengths=merged[1],
-        mate=torch.full((S * out_per,), -1, dtype=torch.int32, device=dev),
+        mate=torch.full((n * out_per,), -1, dtype=torch.int32, device=dev),
         insert_size=insert_size, valid=_cat(valids))
     return localized, tuple(merged[2:]), overflow
 
@@ -405,36 +423,64 @@ def sharded_extend(
     the global layout before localization so mate evidence survives the
     move).  Shard s builds (contig, mer) walk tables from its localized
     block only and extends only the live contigs it owns; each contig's
-    row comes from its owner.  Returns (ContigSet, overflow).
+    row comes from its owner's rank.  `sharded` holds the rank's shards'
+    rows, `al` and the contigs are replicated.  Returns (ContigSet,
+    overflow).
     """
-    S = mesh_shards(mesh)
+    m = data_mesh_of(mesh)
+    S, n = m.num_shards, m.local_shards
     C = contigs.capacity
     R = sharded.num_reads
     dev = contigs.bases.device
-    aln0 = al.contig[:, 0].to(torch.int32)[:R]
-    global_reads = ReadSet(bases=sharded.bases, lengths=sharded.lengths,
-                           mate=sharded.mate,
-                           insert_size=sharded.insert_size)
-    eff = local_assembly.localize_reads(global_reads, aln0)
+    first = m.shards.start * (R // n)  # global index of the rank's row 0
+    aln0 = al.contig[:, 0].to(torch.int32)
+    own = aln0[first:first + R]
+    mate = torch.where(sharded.mate >= 0,
+                       aln0[sharded.mate.clamp(min=0).to(torch.int64)],
+                       local_assembly.NONE)
+    # `local_assembly.localize_reads` on the rank's rows: the mates index
+    # the replicated global alignments
+    eff = torch.where(own >= 0, own, mate).to(torch.int32)
     localized, (eff_loc,), overflow = localize_with(
-        sharded, eff, (eff,), S, out_factor=out_factor)
+        sharded, eff, (eff,), m, out_factor=out_factor)
     insert_size = int(sharded.insert_size)
     owner = torch.arange(C, dtype=torch.int32, device=dev) % S
     bases, lengths = contigs.bases.clone(), contigs.lengths.clone()
     depths = contigs.depths.clone()
-    for s in range(S):
+    for i, s in enumerate(m.shards):
         owned = owner == s
         ext, _walk = local_assembly.extend_contigs(
-            _local_reads(_block(localized.bases, s, S),
-                         _block(localized.lengths, s, S), insert_size),
-            contigs, alive & owned, _block(eff_loc, s, S),
+            _local_reads(_block(localized.bases, i, n),
+                         _block(localized.lengths, i, n), insert_size),
+            contigs, alive & owned, _block(eff_loc, i, n),
             mer_sizes=tuple(mer_sizes), capacity=capacity, max_ext=max_ext,
             backend=backend)
         bases[owned] = ext.bases[owned]
         lengths[owned] = ext.lengths[owned]
         depths[owned] = ext.depths[owned]
         del ext, _walk
+    if m.group is not None:
+        bases, lengths, depths = _from_owners(
+            m, owner, (bases, lengths, depths))
     return ContigSet(bases=bases, lengths=lengths, depths=depths), overflow
+
+
+def _from_owners(m, owner, cols):
+    """Each contig row from the rank that owns it (its owner shard's
+    rank): every rank's owned rows, padded to one count, all_gather in
+    rank order and land in place on every rank."""
+    rank_of = owner // m.local_shards
+    rows = [torch.nonzero(rank_of == r).squeeze(1)
+            for r in range(m.world_size)]
+    width = max(len(r) for r in rows)
+    out = []
+    for x in cols:
+        got = m.gather(_pad_rows(x[rows[m.rank]], width, 0)).reshape(
+            (m.world_size, width) + tuple(x.shape[1:]))
+        for r, idx in enumerate(rows):
+            x[idx] = got[r, :len(idx)]
+        out.append(x)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -458,18 +504,22 @@ def sharded_link_candidates(
     carrying both alignment rows and their global indices; mate pointers
     are rebuilt on arrival from the carried indices (a dropped mate
     invalidates the pair, counted in the overflow).  Each shard runs
-    `candidate_links` on its block; the flat witness arrays are in the
-    global layout for `links_from_candidates`.  Returns (candidates,
-    overflow).
+    `candidate_links` on its block; the flat witness arrays gather over
+    the ranks into the global layout for `links_from_candidates`.
+    `sharded` holds the rank's shards' rows, `al` is replicated.  Returns
+    (candidates, overflow).
     """
-    S = mesh_shards(mesh)
+    m = data_mesh_of(mesh)
+    n = m.local_shards
     R = sharded.num_reads
-    assert R % S == 0
+    assert R % n == 0
+    first = m.shards.start * (R // n)  # global index of the rank's row 0
+    R_all = m.num_shards * (R // n)
     insert_size = int(sharded.insert_size)
     dev = sharded.bases.device
-    aln = al.contig[:, :2].to(torch.int32)[:R]
+    aln = al.contig[:, :2].to(torch.int32)[:R_all]
     mate = sharded.mate.to(torch.int32)[:R]
-    r = torch.arange(R, dtype=torch.int32, device=dev)
+    r = torch.arange(first, first + R, dtype=torch.int32, device=dev)
     # pair representative = lower index of the pair (self if unpaired)
     rep = torch.where(mate >= 0, torch.minimum(r, mate), r).to(torch.int64)
     other = torch.where(mate >= 0, torch.maximum(r, mate), r).to(torch.int64)
@@ -478,22 +528,23 @@ def sharded_link_candidates(
     # destination contig: the first aligned member of the pair; unaligned
     # pairs stay on the representative's home shard
     dest_c = torch.where(a_rep >= 0, a_rep, a_other)
+    rows = slice(first, first + R)
     localized, routed, overflow = localize_with(
         sharded, dest_c,
-        (r, mate, aln, al.cstart[:, :2].to(torch.int32)[:R],
-         al.orient[:, :2].to(torch.uint8)[:R]),
-        S, out_factor=out_factor)
+        (r, mate, aln[rows], al.cstart[rows, :2].to(torch.int32),
+         al.orient[rows, :2].to(torch.uint8)),
+        m, out_factor=out_factor)
     clens = torch.where(alive, contigs.lengths, 0)
     parts = []
-    for s in range(S):
-        bases, lengths, rv = (_block(x, s, S) for x in (
+    for i in range(n):
+        bases, lengths, rv = (_block(x, i, n) for x in (
             localized.bases, localized.lengths, localized.valid))
-        g, mg, c2, s2, o2 = (_block(x, s, S) for x in routed)
-        n = g.shape[0]
+        g, mg, c2, s2, o2 = (_block(x, i, n) for x in routed)
+        nb = g.shape[0]
         # rebuild mate pointers: local position of the carried global index
-        inv = torch.full((R,), -1, dtype=torch.int32, device=dev)
+        inv = torch.full((R_all,), -1, dtype=torch.int32, device=dev)
         inv[g[rv].to(torch.int64)] = torch.arange(
-            n, dtype=torch.int32, device=dev)[rv]
+            nb, dtype=torch.int32, device=dev)[rv]
         new_mate = torch.where(rv & (mg >= 0),
                                inv[mg.clamp(min=0).to(torch.int64)], -1)
         local = ReadSet(bases=bases, lengths=torch.where(rv, lengths, 0),
@@ -503,5 +554,5 @@ def sharded_link_candidates(
             contig=torch.where(rv[:, None], c2, -1), cstart=s2, orient=o2,
             matches=torch.zeros_like(c2), overlap=torch.zeros_like(c2))
         parts.append(candidate_links(al_loc, local, clens))
-    cands = tuple(_cat(p[i] for p in parts) for i in range(5))
+    cands = tuple(m.gather(_cat(p[j] for p in parts)) for j in range(5))
     return cands, overflow

@@ -6,8 +6,11 @@ pointers, sizes and the CUDA stream, and return a cudaError_t).  All
 sources compile in parallel at first use, for `sm_90a` (the H100), into
 `kernels/_build/` (git-ignored); a library is reused while the hash of its
 sources and flags is unchanged (its nvcc output, with the `-Xptxas -v`
-report, is kept beside it).  No torch headers are involved, so a build
-takes seconds.  A failed build raises with the compiler's output.
+report, is kept beside it).  Processes that build at once (the ranks of
+a mesh) take turns under an `fcntl` lock on `_build/`, and each writes
+its libraries to tmp names of its own before the atomic rename.  No
+torch headers are involved, so a build takes seconds.  A failed build
+raises with the compiler's output.
 
     from repro_torch.kernels import build
     lib = build.library("dht_probe")   # ctypes.CDLL, argtypes set
@@ -17,8 +20,11 @@ takes seconds.  A failed build raises with the compiler's output.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
+import os
 import re
 import shutil
 import subprocess
@@ -132,20 +138,32 @@ def _log_path(so: Path) -> Path:
     return so.with_suffix(".log")
 
 
+@contextlib.contextmanager
+def _dir_lock():
+    """Hold an exclusive `fcntl` lock on the build directory: one process
+    at a time compiles into it, and the next finds its libraries."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build_all() -> dict:
     """Compile every library not yet built (one nvcc each, in parallel)."""
-    with _lock:
+    with _lock, _dir_lock():
         todo = [n for n in SIGNATURES if n not in _libs]
         if not todo:
             return _libs
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
         outs = {n: BUILD_DIR / f"{n}-{_digest(n)}.so" for n in todo}
         procs = {}
         for n in todo:
             if outs[n].exists() and _log_path(outs[n]).exists():
                 continue
-            tmp = outs[n].with_suffix(".tmp.so")
+            tmp = outs[n].with_suffix(f".{os.getpid()}.tmp.so")
             cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
                    str(CSRC / f"{n}.cu")]
             procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,

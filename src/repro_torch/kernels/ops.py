@@ -9,8 +9,10 @@ device:
 
 `backend="torch"` runs the plain version on any device; it exists so a
 caller can hold a kernel against its plain version on the card.  Every
-other value raises.  `LAUNCHES` counts, per op, the kernel launches made
-since the last `reset_launches()`: a plain-version call does not count.
+other value raises.  A kernel launches on the current CUDA device, so an
+op refuses a CUDA tensor on any other card.  `LAUNCHES` counts, per op,
+the kernel launches made since the last `reset_launches()`: a
+plain-version call does not count.
 """
 from __future__ import annotations
 
@@ -41,10 +43,22 @@ def _use_kernel(backend, t: torch.Tensor) -> bool:
             f"kernel backend {backend!r} unknown: None (kernel on CUDA "
             f"tensors, plain version on CPU tensors) or 'torch' (plain)")
     if t.device.type == "cuda":
+        _on_current_device(t)
         return True
     if t.device.type == "cpu":
         return False
     raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+def _on_current_device(t: torch.Tensor) -> None:
+    """The kernels launch on the current device (no source sets one):
+    refuse a tensor on another card rather than launch there."""
+    current = torch.cuda.current_device()
+    if t.device.index is not None and t.device.index != current:
+        raise ValueError(
+            f"kernel input on {t.device}, but the current device is "
+            f"cuda:{current}: call torch.cuda.set_device({t.device.index}) "
+            f"first (a mesh rank does, for its card)")
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, dev) -> None:

@@ -13,17 +13,22 @@ whatever the read count.  Over S shards
 (`sharded_streaming_kmer_analysis`), both filters and the running table
 are owner-partitioned: occurrences route to their hash owner
 (`dist.kmer_owner`) before they touch filter or table state, so each
-key's admission and count are globally exact (`dist.stages`).
+key's admission and count are globally exact (`dist.stages`).  Over the
+W ranks of a mesh, each rank holds its S/W shards' filters and table
+slices, reads the whole batch stream and keeps its blocks of each batch.
 
 Batch boundaries are checkpoint boundaries: `StreamCheckpoint` saves
 (filters, running table, counters, a fingerprint of the data and
 parameters) after every batch through `train.checkpoint.Checkpointer`,
-so an interrupted analysis resumes at the last completed batch.
+so an interrupted analysis resumes at the last completed batch.  Over
+W > 1 ranks each rank keeps its own shards' state in a subdirectory
+`rank{r}-of-{W}`, and a resume under another W is refused.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
+import re
 import zlib
 from typing import Optional
 
@@ -70,12 +75,17 @@ class StreamCheckpoint:
     def save(self, phase: int, next_batch: int, state: dict) -> None:
         self.ck.save(phase * self.PHASE + next_batch, state)
 
-    def restore(self, template: dict):
-        """-> (state, phase, next_batch), or (template, 0, 0) if none."""
-        try:
-            state, step = self.ck.restore(template)
-        except FileNotFoundError:
+    def latest(self) -> int:
+        """The newest saved step, 0 if none."""
+        return self.ck.latest_step() or 0
+
+    def restore(self, template: dict, step: Optional[int] = None):
+        """-> (state, phase, next_batch) of step `step` (default the
+        newest), or (template, 0, 0) at step 0 or with none saved."""
+        step = self.latest() if step is None else step
+        if step == 0:
             return template, 0, 0
+        state, step = self.ck.restore(template, step=step)
         if int(state["fp"]) != int(template["fp"]):
             raise ValueError(
                 "checkpoint directory holds streaming state for a "
@@ -91,6 +101,31 @@ def job_checkpoint_dir(root: str, job: str) -> str:
     raw name, so names that slug alike still differ."""
     slug = "".join(c if c.isalnum() or c in "-_" else "_" for c in job)[:64]
     return os.path.join(root, f"{slug}-{zlib.crc32(job.encode()):08x}")
+
+
+def rank_checkpoint_dir(directory: str, mesh) -> str:
+    """Where a rank of `mesh` keeps its streamed state under `directory`:
+    the directory itself over one rank, `rank{r}-of-{W}` below it over W.
+    Raises if `directory` holds state of a run over another number of
+    ranks: its shards' filters and tables would not be this run's."""
+    W = mesh.world_size
+    found = set()
+    if os.path.isdir(directory):
+        for name in os.listdir(directory):
+            hit = re.fullmatch(r"rank\d+-of-(\d+)", name)
+            if hit:
+                found.add(int(hit.group(1)))
+            elif name.startswith("step_"):
+                found.add(1)
+    if found - {W}:
+        raise ValueError(
+            f"checkpoint directory {directory} holds streamed state of a "
+            f"run over {sorted(found - {W})} rank(s), not {W}: resume under "
+            f"the same number of ranks, or point checkpoint_dir at a fresh "
+            f"directory")
+    if W == 1:
+        return directory
+    return os.path.join(directory, f"rank{mesh.rank}-of-{W}")
 
 
 def _fingerprint(batches, **params) -> int:
@@ -119,19 +154,29 @@ def _restore_counters(stats: StreamStats, t: torch.Tensor) -> None:
 
 def _run_two_pass(batches, *, stats: StreamStats, checkpoint_dir,
                   fingerprint_params: dict, state_fn, load_fn,
-                  pass1_step, pass2_step) -> None:
+                  pass1_step, pass2_step, mesh=None) -> None:
     """The two-pass skeleton: checkpoint restore (with the fingerprint
     guard), batch skipping, per-batch saves, counter persistence and the
     pass-1 against pass-2 batch count check.  `state_fn(fp)` snapshots the
     state, `load_fn(state)` restores it, `pass1_step(batch)` /
-    `pass2_step(batch)` process one batch."""
+    `pass2_step(batch)` process one batch.
+
+    Over the ranks of `mesh` every rank resumes at the ranks' earliest
+    saved step.  A rank saves a batch only once every rank has finished
+    the previous one (each batch's exchanges wait for all), so a run
+    stopped between two ranks' saves leaves them one batch apart, and the
+    step before a rank's newest is still on disk (the checkpoint keeps
+    2)."""
     require_reiterable(batches)
     ck = StreamCheckpoint(checkpoint_dir) if checkpoint_dir else None
     fp = 0
     phase, start = 0, 0
     if ck is not None:
         fp = _fingerprint(batches, **fingerprint_params)
-        state, phase, start = ck.restore(state_fn(fp))
+        step = ck.latest()
+        if mesh is not None:
+            step = int(mesh.min(torch.tensor(step)))
+        state, phase, start = ck.restore(state_fn(fp), step)
         load_fn(state)
         _restore_counters(stats, state["counters"])
         stats.resumed = phase > 0 or start > 0
@@ -263,27 +308,35 @@ def sharded_streaming_kmer_analysis(
     `sharded_stream_fold`), so admission and counts are globally exact.
 
     Args:
-      mesh: the shard count S (or a `Mesh` context).
-      bloom_bits: slots of each per-shard filter ([S, bloom_bits] bits
-        for each of the two filters).
+      mesh: the shard count S, a `DataMesh` or a `Mesh` context.  Over W
+        ranks a rank holds S/W shards' filters and table slices.
+      bloom_bits: slots of each per-shard filter ([S/W, bloom_bits] bits
+        a rank for each of the two filters).
       capacity: per-shard running-table rows.
+      checkpoint_dir: over W > 1 ranks each rank's state goes to its own
+        subdirectory (`rank_checkpoint_dir`).
     Returns:
       (run, stats): the running table with flat [S * capacity] arrays in
       the owner layout of `sharded_kmer_analysis` (keys hi, lo, count,
-      left_cnt, right_cnt), and a `StreamStats` with the route overflow.
+      left_cnt, right_cnt), gathered over the ranks, and a `StreamStats`
+      with the route overflow.
     """
     from repro_torch.dist import stages
-    from repro_torch.dist.pipeline import mesh_shards
+    from repro_torch.dist.pipeline import data_mesh_of
 
-    S = mesh_shards(mesh)
+    m = data_mesh_of(mesh)
+    S, n = m.num_shards, m.local_shards
     if device is None:
         require_reiterable(batches)
         device = next(iter(batches)).bases.device
-    f1_bits = torch.zeros((S, bloom_bits), dtype=torch.bool, device=device)
-    f2_bits = torch.zeros((S, bloom_bits), dtype=torch.bool, device=device)
+    if checkpoint_dir:
+        checkpoint_dir = rank_checkpoint_dir(checkpoint_dir, m)
+    f1_bits = torch.zeros((n, bloom_bits), dtype=torch.bool, device=device)
+    f2_bits = torch.zeros((n, bloom_bits), dtype=torch.bool, device=device)
     empty = kmer_analysis.empty_count_table(capacity, device=device)
-    # owner layout: rows [s*capacity, (s+1)*capacity) are shard s's slice
-    run = {key: empty[key].repeat((S,) + (1,) * (empty[key].dim() - 1))
+    # owner layout: rows [i*capacity, (i+1)*capacity) are the slice of
+    # the rank's i-th shard
+    run = {key: empty[key].repeat((n,) + (1,) * (empty[key].dim() - 1))
            for key in stages.RUN_KEYS}
     stats = StreamStats()
 
@@ -302,7 +355,7 @@ def sharded_streaming_kmer_analysis(
     def pass1_step(batch):
         nonlocal f1_bits, f2_bits
         f1_bits, f2_bits, route_ovf, pre_ovf = stages.sharded_bloom_observe(
-            batch.to(device), S, f1_bits, f2_bits, k=k,
+            batch.to(device), m, f1_bits, f2_bits, k=k,
             pre_capacity=pre_capacity, route_capacity=route_capacity,
             num_hashes=num_hashes, backend=backend)
         stats.route_overflow += int(route_ovf)
@@ -311,7 +364,7 @@ def sharded_streaming_kmer_analysis(
     def pass2_step(batch):
         nonlocal run
         run, counts, route_ovf, table_ovf = stages.sharded_stream_fold(
-            batch.to(device), S, f2_bits, run, k=k, capacity=capacity,
+            batch.to(device), m, f2_bits, run, k=k, capacity=capacity,
             pre_capacity=pre_capacity, route_capacity=route_capacity,
             num_hashes=num_hashes, backend=backend)
         stats.occurrences_total += int(counts[0])
@@ -325,6 +378,6 @@ def sharded_streaming_kmer_analysis(
                                 bloom_bits=bloom_bits,
                                 num_hashes=num_hashes, num_shards=S),
         state_fn=state_fn, load_fn=load_fn,
-        pass1_step=pass1_step, pass2_step=pass2_step,
+        pass1_step=pass1_step, pass2_step=pass2_step, mesh=m,
     )
-    return run, stats
+    return {key: m.gather(v) for key, v in run.items()}, stats

@@ -5,7 +5,9 @@ PyTorch version (`repro_torch.kernels.ref`, itself held to the JAX
 reference by the other test_torch_* files) at small shapes with the edge
 cases of those files, plus the whole `contig_rounds`, `assemble` and
 `assemble_stream` on the card against the CPU run, under `Local` and
-under `Mesh(2)`, the HMM scorer on the card against the CPU, two jobs
+under `Mesh(2)` (also over an NCCL group of one rank, against the
+one-process `Mesh(2)`), a kernel op refusing a tensor off the current
+card, the HMM scorer on the card against the CPU, two jobs
 interleaved on a `JobServer(Local())` against their solo runs, and the
 SMOKE llama's, SMOKE zamba2's and SMOKE xLSTM's `forward(use_kernel=True)`
 and greedy `Engine` and the SMOKE qwen2-moe's, whisper's, gemma's,
@@ -699,7 +701,7 @@ def _same_result(got, want, keys):
         g, w = got[key], want[key]
         g = g if isinstance(g, tuple) else (g,)
         w = w if isinstance(w, tuple) else (w,)
-        _same([x.cpu() for x in g], list(w))
+        _same([x.cpu() for x in g], [x.cpu() for x in w])
 
 
 def _mesh_fixture():
@@ -758,6 +760,49 @@ def test_mesh_gapped_assemble_stream_on_card_equals_cpu(dev):
     _same_result(got, want, ASSEMBLE_KEYS)
     assert got["stats"] == want["stats"]
     assert got["stream_stats"] == want["stream_stats"]
+
+
+def test_mesh_over_an_nccl_group_equals_one_process(dev, tmp_path,
+                                                   monkeypatch):
+    """`Mesh(2, group=g)` over an NCCL group of one rank (this process)
+    against the single-process `Mesh(2)` on the card, bit for bit."""
+    import torch.distributed as tdist
+
+    from repro_torch.launch import mesh as launch_mesh
+
+    reads, plan = _mesh_fixture()
+    batches = batches_from_readset(reads, 256)
+    monkeypatch.delenv("LOCAL_RANK", raising=False)  # join_group sets it
+    launch_mesh.join_group(0, 1, device="cuda",
+                           init_file=tmp_path / "store")
+    try:
+        mesh = launch_mesh.make_data_mesh(2)
+        assert tdist.get_backend(mesh.group) == "nccl"
+        assert mesh.device == torch.device("cuda",
+                                           torch.cuda.current_device())
+        ops.reset_launches()
+        got = Assembler(plan, Mesh(2, group=mesh.group)).assemble(reads)
+        assert all(ops.LAUNCHES[n] > 0 for n in ASSEMBLY_KERNELS
+                   if n != "sw_extend"), ops.LAUNCHES
+        got_s = Assembler(plan, Mesh(2, group=mesh.group)).assemble_stream(
+            batches)
+    finally:
+        tdist.destroy_process_group()
+    for out, want in ((got, Assembler(plan, Mesh(2, device=dev))
+                       .assemble(reads)),
+                      (got_s, Assembler(plan, Mesh(2, device=dev))
+                       .assemble_stream(batches))):
+        _same_result(out, want, ASSEMBLE_KEYS)
+        assert out["stats"] == want["stats"]
+        assert out["overflow"] == want["overflow"]
+
+
+def test_kernel_op_refuses_a_tensor_off_the_current_card(dev, monkeypatch):
+    bases, lengths = _reads(np.random.default_rng(0), 4, 40, dev)
+    monkeypatch.setattr(torch.cuda, "current_device",
+                        lambda: bases.device.index + 1)
+    with pytest.raises(ValueError, match="current device"):
+        ops.kmer_extract(bases, lengths, k=17)
 
 
 def test_hmm_hits_on_card_equals_cpu(dev):

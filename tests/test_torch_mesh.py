@@ -17,6 +17,9 @@
   more misassembly.
 * `Mesh()` without a card and without `device="cpu"` raises; `spawn`
   shares the device and the shard count and none of a run's state.
+* The same `contig_rounds` over a gloo group of W = 2 spawned ranks
+  (`Mesh(2, group=...)`, one shard a rank, `launch.mesh.spawn`) against
+  the same reference run, bit for bit, on every rank.
 """
 import dataclasses
 from types import SimpleNamespace
@@ -34,6 +37,7 @@ from repro_torch.data import mgsim
 from repro_torch.stream import batches_from_readset
 from test_torch_dist_stages import FIXTURE
 from test_torch_exchange import eq, eq_record, run_reference
+from test_torch_mesh_group import contig_rounds_rank, run_group
 
 S = 2
 
@@ -69,6 +73,26 @@ def test_contig_rounds_matches_the_reference_mesh(ref):
     assert [dataclasses.asdict(s) for s in stats] == ref.json("stats")
     assert asm.ctx.overflow() == ref.json("overflow")
     assert int(alive.sum()) > 0 and len(stats) == 2
+
+
+def test_contig_rounds_over_a_group_matches_the_reference_mesh(ref,
+                                                               tmp_path):
+    plan = dataclasses.replace(bridge.plan_from_fields(ref.json("plan")),
+                               run_local_assembly=False)
+    reads = ReadSet(ref.tensor("reads.bases"), ref.tensor("reads.lengths"),
+                    ref.tensor("reads.mate"), int(ref["reads.insert_size"]))
+    inp = tmp_path / "inp.pt"
+    torch.save(dict(plan=plan, reads=reads), inp)
+    ranks = run_group(contig_rounds_rank, S, tmp_path, (str(inp),))
+    got = ranks[0]
+    eq_record(got["contigs"], ref, "contigs")
+    eq(got["alive"], ref["alive"], "alive")
+    eq_record(got["al"], ref, "al")
+    for r in ranks:
+        assert r["stats"] == ref.json("stats")
+        assert r["overflow"] == ref.json("overflow")
+        assert r["digest"] == ranks[0]["digest"] and len(set(
+            r["digest"])) == 1
 
 
 SHAPE = SimpleNamespace(num_reads=800, max_len=60)
